@@ -1,0 +1,112 @@
+"""Rules of the port package: no JAX, no zopfli_tpu, device by request."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+import zlib
+
+import pytest
+import torch
+
+# The tensors here are tiny: one intra-op thread per test process keeps
+# parallel test workers from oversubscribing the cores.
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "zopfli_tpu_torch")
+
+
+def _port_sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PORT):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_sources_import_no_jax_or_reference():
+    files = _port_sources()
+    assert len(files) >= 18
+    for path in files:
+        for mod in _imported_modules(path):
+            top = mod.split(".")[0]
+            assert top not in ("jax", "jaxlib", "zopfli_tpu"), (path, mod)
+
+
+def test_import_and_compress_leave_jax_unloaded(tmp_path):
+    code = (
+        "import json, sys, zlib\n"
+        "import zopfli_tpu_torch as zt\n"
+        "data = b'hello hello hello world ' * 200\n"
+        "out = zt.compress(data, 'gzip', zt.Options(device='cpu',"
+        " numiterations=2))\n"
+        "assert zlib.decompress(out, 31) == data\n"
+        "mods = [m for m in sys.modules if m == 'jax' or"
+        " m.startswith(('jax.', 'zopfli_tpu.')) or m == 'zopfli_tpu']\n"
+        "print(json.dumps(mods))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    res = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    import zopfli_tpu_torch as zt
+    assert zt.Options().device == "cuda" and zt.Options().engine == "device"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        zt.compress(b"abc" * 100, "gzip", zt.Options())
+
+
+def test_native_engine_and_bad_options():
+    import zopfli_tpu_torch as zt
+    data = b"native engine round trip " * 300
+    out = zt.compress(data, "zlib", zt.Options(engine="native",
+                                              numiterations=3))
+    assert zlib.decompress(out) == data
+    with pytest.raises(ValueError):
+        zt.compress(data, "gzip", zt.Options(engine="tpu", device="cpu"))
+    with pytest.raises(ValueError):
+        zt.compress(data, "bz2", zt.Options(device="cpu"))
+
+
+def test_device_seed_is_the_next_slice(monkeypatch):
+    import zopfli_tpu_torch as zt
+    monkeypatch.setenv("ZT_SEED", "device")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        zt.compress(b"abc" * 100, "gzip", zt.Options(device="cpu"))
+
+
+def test_empty_gzip_is_twenty_bytes():
+    import zopfli_tpu_torch as zt
+    out = zt.compress(b"", "gzip", zt.Options(device="cpu"))
+    assert len(out) == 20 and zlib.decompress(out, 31) == b""
+
+
+def test_warmup_and_tracer_on_cpu():
+    import zopfli_tpu_torch as zt
+    from zopfli_tpu_torch.utils.logging import Tracer
+    opts = zt.Options(device="cpu", numiterations=2)
+    assert zt.warmup(sizes=(3000,), options=opts) is None
+    assert (3000, 2, "device", "cpu") in zt._WARMED
+    tracer = Tracer()
+    data = b"trace every block of this input " * 120
+    out = zt.compress(data, "gzip", zt.Options(device="cpu", numiterations=2,
+                                               tracer=tracer))
+    assert zlib.decompress(out, 31) == data
+    kinds = {r["kind"] for r in tracer.records}
+    assert {"iteration", "block", "summary"} <= kinds
