@@ -9,15 +9,18 @@ Phases, each printed as one JSON line:
   2. kernels: each CUDA kernel against its plain PyTorch version on the
      card, at production shapes (TILE=8192, LANES=256, KBP=12), on real
      inputs: the port's candidate tables for the phase-3 input and the
-     first squeeze iteration's costs from its greedy seed stats.  Outputs
-     must be bit-equal.  Times are CUDA-event means over warm launches.
+     first squeeze iteration's costs from its greedy seed stats; then at
+     the CASES shapes on seeded random inputs (ties, unsorted
+     breakpoints, odd tiles and lane counts, cut paths).  Outputs must be
+     bit-equal, and one warm scan + traceback pair must not sync the
+     stream.  Times are CUDA-event means over warm launches.
   3. main path: zopfli_tpu_torch.compress(1 MiB, "gzip", --i15) on the
      card; the output must round-trip through zlib, every kernel must
      have launched 15 times, no block may fall back to the host engine,
      and the size must be within 2% of the native engine's.
-  4. profile (diagnostic, checks nothing): one more compress under
-     torch.profiler -- host time per pipeline stage, device time per
-     kernel, the device's idle share.
+  4. profile: one more compress under torch.profiler -- host time per
+     pipeline stage, device time per kernel, the device's idle share.
+     It fails only if the profiler fails or sees no device time.
 Then a `kernels` JSON line, and last {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, if any phase fails or no GPU is
 present.  Imports nothing of JAX.
@@ -84,7 +87,7 @@ def phase_env(zt_scan):
     zt_scan.build_kernels()
     secs = time.time() - t0
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln or "smem" in ln]
              for name, log in zt_scan.BUILD_LOG.items()}
     emit({"phase": "build", "ok": True, "seconds": round(secs, 3),
           "ptxas": ptxas})
@@ -112,7 +115,7 @@ def phase_kernels(data, dev="cuda"):
     G = fs.ngroups
     rows, kbp, nt = inputs[0].shape
     tile = rows // G
-    symtab = sk.symbol_range_table()
+    symtab = fs.symtab
 
     ce_k, cost_k = sk.scan(*inputs, groups=G)
     ce_p, cost_p = sk.scan_plain(*inputs, groups=G)
@@ -156,16 +159,33 @@ def phase_kernels(data, dev="cuda"):
     path = pe_k != 0
     nlit = int(((pe_k & sk.LEN_MASK) == 1).sum())
     npath = int(path.sum())
+    npath_max = int(path.sum(dim=0).max())  # the longest walk of a lane
     tb_bytes = (4 * npath + 4 * nlit + 4 * G * nt + symtab.nbytes
                 + hist_k.numel() * 4 + pe_k.numel() * 4)
     tb_ops = 4 * npath
     tb_bound = max(tb_bytes / HBM_BYTES_PER_S, tb_ops / F32_FLOPS) * 1e3
 
-    checks.update(_two_group_check(dev))
+    # One warm scan + traceback pair, with symtab as FusedSqueeze holds
+    # it, must not sync the stream.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ce_s, _ = sk.scan(*inputs, groups=G)
+        sk.traceback(ce_s, fs.lit_t, fs.tile_nbytes_d, symtab, groups=G)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    checks["no_sync"] = True
+
+    checks.update(_case_checks(dev))
     ok = all(checks.values())
     emit({"phase": "kernels", "ok": ok, "bit_equal": checks,
           "shape": {"groups": G, "tile": tile, "lanes": nt, "kbp": kbp},
-          "path_rows": npath, "scan_ms": scan_ms,
+          "smem_bytes": {
+              "scan": sk.build_kernels()["scan"].zt_scan_smem_bytes(kbp),
+              "traceback": sk.build_kernels()[
+                  "traceback"].zt_traceback_smem_bytes(tile)},
+          "path_rows": npath, "path_rows_max_lane": npath_max,
+          "scan_ms": scan_ms,
           "scan_plain_ms": scan_plain_ms, "traceback_ms": tb_ms,
           "traceback_plain_ms": tb_plain_ms})
     if not ok:
@@ -192,36 +212,109 @@ def phase_kernels(data, dev="cuda"):
     }
 
 
-def _two_group_check(dev) -> dict:
-    """Both kernels at groups=2 on seeded random inputs (the main path at
-    1 MiB runs one group; larger inputs run several)."""
+# Card checks beside the production shapes: (groups, tile, lanes, kbp,
+# unsorted breakpoints, costs on the 1/128-bit grid).  The scan works in
+# 32-row chunks of 8 lanes and the traceback in blocks of 4 lanes (2 past
+# a tile of ~14k rows), so tiles and lane counts that divide neither are
+# here.
+CASES = {
+    "groups2": (2, 2048, 64, 12, False, False),
+    "grid_ties": (1, 2048, 64, 12, False, True),
+    "unsorted": (1, 2048, 64, 12, True, False),
+    "kbp1": (1, 1024, 32, 1, True, True),
+    "kbp16": (1, 1024, 32, 16, True, True),
+    "lanes60_tile1000": (2, 1000, 60, 12, True, True),
+    "lanes13_tile333": (1, 333, 13, 5, False, True),
+}
+TRACEBACK_ONLY_TILE = 15000   # two lanes per traceback block
+
+
+def _case_inputs(rng, G, T, L, K, unsorted, grid):
+    import numpy as np
+
+    def costs(shape, lo, hi):
+        if grid:
+            return (rng.integers(lo * 4, hi * 4, shape) * 32 / 128).astype(
+                np.float32)
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+
+    if unsorted:
+        bl = rng.integers(0, 300, (G * T, K, L))
+        bl = np.where(rng.random(bl.shape) < 0.3, 0, bl)
+        bl = np.where(rng.random(bl.shape) < 0.2, bl[:, :1], bl)
+    else:
+        bl = np.sort(rng.integers(0, 200, (G * T, K, L)), axis=1)
+        bl = np.where(bl < 3, 0, bl)
+    return [bl.astype(np.int32),
+            rng.integers(1, 32769, (G * T, K, L)).astype(np.int32),
+            costs((G * T, K, L), 1, 15), costs((G * T, L), 1, 12),
+            costs((G * 256, L), 1, 10)]
+
+
+def _traceback_cases(sk, ce, lit, tile, rng, G):
+    """Both traceback versions on ce, then on ce with its paths cut: rows
+    of length 0 and 2 on the path, tile_nbytes of 0, of tile and past it."""
+    import numpy as np
+    import torch
+
+    L = ce.shape[1]
+    symtab = sk.symbol_range_table()
+    nbytes = rng.integers(0, tile + 1, (G, L)).astype(np.int32)
+    nbytes[:, 0], nbytes[:, 1] = tile, 0
+    if L > 2:
+        nbytes[:, 2] = tile + 5
+    nbytes = torch.from_numpy(nbytes).to(ce.device)
+    ok = True
+    for cut in (False, True):
+        if cut:
+            pe_h = pe.cpu().numpy()
+            ce_h = ce.cpu().numpy()
+            for g in range(G):
+                for lane in range(3, L):
+                    on = np.nonzero(pe_h[g * tile:(g + 1) * tile, lane])[0]
+                    if len(on):
+                        ce_h[g * tile + on[len(on) // 2], lane] = (
+                            0 if lane % 2 else sk.pack_edge(2, 9))
+            ce = torch.from_numpy(ce_h).to(ce.device)
+        hist, pe = sk.traceback(ce, lit, nbytes, symtab, groups=G)
+        phist, ppe = sk.traceback_plain(ce, lit, nbytes, symtab, groups=G)
+        ok = ok and torch.equal(hist, phist) and torch.equal(pe, ppe)
+    return ok
+
+
+def _case_checks(dev) -> dict:
+    """Both kernels against their plain versions on seeded random inputs
+    at the CASES shapes (the main path at 1 MiB runs one group of 256
+    lanes; larger inputs run several groups)."""
     import numpy as np
     import torch
 
     from zopfli_tpu_torch.ops import scan_kernel as sk
 
+    checks = {}
     rng = np.random.default_rng(7)
-    G, T, L, K = 2, 2048, 64, 12
-    bl = np.sort(rng.integers(0, 200, (G * T, K, L)), axis=1)
-    bl = np.where(bl < 3, 0, bl).astype(np.int32)
-    ins = [bl, rng.integers(1, 32769, (G * T, K, L)).astype(np.int32),
-           rng.uniform(1, 15, (G * T, K, L)).astype(np.float32),
-           rng.uniform(1, 12, (G * T, L)).astype(np.float32),
-           rng.uniform(1, 10, (G * sk.W, L)).astype(np.float32)]
-    ins = [torch.from_numpy(a).to(dev) for a in ins]
-    lit = torch.from_numpy(rng.integers(0, 256, (G * T, L)).astype(
-        np.int32)).to(dev)
-    nbytes = torch.from_numpy(rng.integers(0, T + 1, (G, L)).astype(
-        np.int32)).to(dev)
-    symtab = sk.symbol_range_table()
-    ce, cost = sk.scan(*ins, groups=G)
-    pce, pcost = sk.scan_plain(*ins, groups=G)
-    hist, pe = sk.traceback(ce, lit, nbytes, symtab, groups=G)
-    phist, ppe = sk.traceback_plain(ce, lit, nbytes, symtab, groups=G)
-    return {"groups2_scan": torch.equal(ce, pce) and torch.equal(
-                cost.view(torch.int32), pcost.view(torch.int32)),
-            "groups2_traceback": torch.equal(hist, phist)
-            and torch.equal(pe, ppe)}
+    for name, (G, T, L, K, unsorted, grid) in CASES.items():
+        ins = [torch.from_numpy(a).to(dev)
+               for a in _case_inputs(rng, G, T, L, K, unsorted, grid)]
+        lit = torch.from_numpy(rng.integers(0, 256, (G * T, L)).astype(
+            np.int32)).to(dev)
+        ce, cost = sk.scan(*ins, groups=G)
+        pce, pcost = sk.scan_plain(*ins, groups=G)
+        checks[f"{name}_scan"] = torch.equal(ce, pce) and torch.equal(
+            cost.view(torch.int32), pcost.view(torch.int32))
+        checks[f"{name}_traceback"] = _traceback_cases(sk, ce, lit, T, rng,
+                                                       G)
+    # A large tile for the traceback alone: random edges that fit.
+    T, L = TRACEBACK_ONLY_TILE, 6
+    pos = np.arange(1, T + 1)[:, None]
+    ln = rng.integers(3, 259, (T, L))
+    ce = np.where((rng.random((T, L)) < 0.7) | (ln > pos), 1,
+                  ln | (rng.integers(1, 32769, (T, L)) << 9))
+    lit = rng.integers(0, 256, (T, L)).astype(np.int32)
+    checks[f"tile{T}_traceback"] = _traceback_cases(
+        sk, torch.from_numpy(ce.astype(np.int32)).to(dev),
+        torch.from_numpy(lit).to(dev), T, rng, 1)
+    return checks
 
 
 def phase_main(data, dev="cuda"):
@@ -278,9 +371,10 @@ def phase_main(data, dev="cuda"):
 def phase_profile(data) -> None:
     """One more compress under torch.profiler: where the time goes.
 
-    Diagnostic only (it checks nothing): the host time inside each of the
-    pipeline's named ranges (zopfli_tpu_torch.utils.logging.span), the
-    device time by kernel, and the device's busy share of the wall time.
+    It checks only that the profiler saw the device: the host time inside
+    each of the pipeline's named ranges (zopfli_tpu_torch.utils.logging
+    .span), the device time by kernel, and the device's busy share of the
+    wall time.
     """
     import torch
     from torch.autograd import DeviceType
@@ -289,34 +383,33 @@ def phase_profile(data) -> None:
     import zopfli_tpu_torch as zt
 
     raw = data.tobytes()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            zt.compress(raw, "gzip", zt.Options(numiterations=ITERATIONS))
-            torch.cuda.synchronize()
-            wall = time.time() - t0
-        ranges, kernels = {}, []
-        for evt in prof.key_averages():
-            # A named range shows twice: as a host range and as its
-            # projection on the device timeline, which is no kernel.
-            if evt.key.startswith("zt."):
-                if evt.device_type == DeviceType.CPU:
-                    ranges[evt.key] = evt.cpu_time_total / 1e3
-            elif evt.device_type == DeviceType.CUDA:
-                kernels.append((evt.self_device_time_total / 1e3, evt.count,
-                                evt.key))
-        kernels.sort(reverse=True)
-        busy = sum(k[0] for k in kernels)
-        emit({"phase": "profile", "ok": True, "wall_ms": wall * 1e3,
-              "device_busy_ms": busy,
-              "device_idle_share": 1.0 - busy / (wall * 1e3),
-              "device_launches": sum(k[1] for k in kernels),
-              "ranges_ms": ranges,
-              "top_device_ms": [{"ms": ms, "count": n, "name": name[:80]}
-                                for ms, n, name in kernels[:12]]})
-    except Exception as exc:  # the measurement is optional, not a check
-        emit({"phase": "profile", "ok": False, "error": repr(exc)[:300]})
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        zt.compress(raw, "gzip", zt.Options(numiterations=ITERATIONS))
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    ranges, kernels = {}, []
+    for evt in prof.key_averages():
+        # A named range shows twice: as a host range and as its
+        # projection on the device timeline, which is no kernel.
+        if evt.key.startswith("zt."):
+            if evt.device_type == DeviceType.CPU:
+                ranges[evt.key] = evt.cpu_time_total / 1e3
+        elif evt.device_type == DeviceType.CUDA:
+            kernels.append((evt.self_device_time_total / 1e3, evt.count,
+                            evt.key))
+    kernels.sort(reverse=True)
+    busy = sum(k[0] for k in kernels)
+    if not kernels:
+        raise RuntimeError("the profiler saw no device time")
+    emit({"phase": "profile", "ok": True, "wall_ms": wall * 1e3,
+          "device_busy_ms": busy,
+          "device_idle_share": 1.0 - busy / (wall * 1e3),
+          "device_launches": sum(k[1] for k in kernels),
+          "ranges_ms": ranges,
+          "top_device_ms": [{"ms": ms, "count": n, "name": name[:80]}
+                            for ms, n, name in kernels[:12]]})
 
 
 def main(argv) -> int:

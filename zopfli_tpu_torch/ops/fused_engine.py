@@ -249,8 +249,8 @@ class FusedSqueeze:
             self.tile_block.reshape(G, LANES)).to(dev).long()
         self._lane_used = (tile_nbytes_d > 0).reshape(G * LANES, 1)
         self.tile_nbytes_d = tile_nbytes_d.reshape(G, LANES).contiguous()
-        self.symtab = torch.from_numpy(
-            scan_kernel.symbol_range_table()).to(dev)
+        # Host table: the traceback wrapper reads it without a sync.
+        self.symtab = scan_kernel.symbol_range_table()
         self._lsym = torch.from_numpy(_LSYM).to(dev)
         self._lextra = torch.from_numpy(_LEXTRA).to(dev)
         self._dsym_extra = torch.from_numpy(_DSYM_EXTRA).to(dev)

@@ -253,13 +253,19 @@ def _nvcc() -> str:
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
-    vp, ci = ctypes.c_void_p, ctypes.c_int
+    vp, ci, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
     if name == "scan":
         lib.zt_scan.restype = ci
         lib.zt_scan.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+        lib.zt_scan_smem_bytes.restype = sz
+        lib.zt_scan_smem_bytes.argtypes = [ci]
     else:
         lib.zt_traceback.restype = ci
         lib.zt_traceback.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+        lib.zt_traceback_lanes_per_block.restype = ci
+        lib.zt_traceback_lanes_per_block.argtypes = [ci]
+        lib.zt_traceback_smem_bytes.restype = sz
+        lib.zt_traceback_smem_bytes.argtypes = [ci]
 
 
 def build_kernels() -> dict[str, ctypes.CDLL]:
@@ -361,9 +367,15 @@ def _device_bin_tables(symtab, device):
 
 
 def traceback(ce, lit, tile_nbytes, symtab, groups=1):
-    """The traceback: CUDA kernel on a CUDA tensor, plain version on CPU."""
-    symtab_h = (symtab.cpu().numpy() if isinstance(symtab, torch.Tensor)
-                else np.asarray(symtab))
+    """The traceback: CUDA kernel on a CUDA tensor, plain version on CPU.
+
+    symtab is a host table (numpy, or a CPU tensor): reading a device
+    copy would sync the stream on every call.
+    """
+    if isinstance(symtab, torch.Tensor) and symtab.device.type != "cpu":
+        raise ValueError("traceback: symtab must be a host table, got a "
+                         f"tensor on {symtab.device}")
+    symtab_h = np.asarray(symtab)
     if _device_kind(ce) == "cpu":
         return traceback_plain(ce, lit, tile_nbytes, symtab_h, groups)
     rows, nt = ce.shape
@@ -377,9 +389,13 @@ def traceback(ce, lit, tile_nbytes, symtab, groups=1):
             raise ValueError("traceback: inputs on different devices")
     len_bin, dist_bin = _device_bin_tables(symtab_h, ce.device)
     lib = build_kernels()["traceback"]
-    hist = torch.zeros((groups * HBINS, nt), dtype=torch.float32,
+    if lib.zt_traceback_lanes_per_block(rows // groups) == 0:
+        raise ValueError(f"traceback: a tile of {rows // groups} rows does "
+                         "not fit in one block's shared memory")
+    # The kernel writes every element of both outputs.
+    hist = torch.empty((groups * HBINS, nt), dtype=torch.float32,
                        device=ce.device)
-    pe = torch.zeros((rows, nt), dtype=torch.int32, device=ce.device)
+    pe = torch.empty((rows, nt), dtype=torch.int32, device=ce.device)
     stream = torch.cuda.current_stream(ce.device).cuda_stream
     _raise_on(lib.zt_traceback(
         ce.data_ptr(), lit.data_ptr(), tile_nbytes.data_ptr(),
