@@ -7,20 +7,31 @@
 Phases, each printed as one JSON line:
   1. environment: the card's name and power limit, the kernels' build.
   2. kernels: each CUDA kernel against its plain PyTorch version on the
-     card, at production shapes (TILE=8192, LANES=256, KBP=12), on real
-     inputs: the port's candidate tables for the phase-3 input and the
-     first squeeze iteration's costs from its greedy seed stats; then at
-     the CASES shapes on seeded random inputs (ties, unsorted
-     breakpoints, odd tiles and lane counts, cut paths).  Outputs must be
-     bit-equal, and one warm scan + traceback pair must not sync the
-     stream.  Times are CUDA-event means over warm launches.
+     card, on real inputs at production shapes (TILE=8192, LANES=256,
+     KBP=12) for the phase-3 input:
+       - scan and traceback on the first squeeze iteration's inputs
+         (the port's candidate tables, costs from the greedy seed stats)
+         and on the device seed program's fixed-cost inputs;
+       - hist_cost on the seed's per-block histograms, on one batch of
+         split-probe histograms, and on seeded random batches of 1, 18
+         and 2048 rows with edge rows;
+       - then the CASES shapes on seeded random inputs (ties, unsorted
+         breakpoints, odd tiles and lane counts, cut paths).
+     Outputs must be bit-equal, and one warm scan + traceback pair must
+     not sync the stream.  The device split of the seed parse must equal
+     the host splitter on the same stream.  Times are CUDA-event means
+     over warm launches.
   3. main path: zopfli_tpu_torch.compress(1 MiB, "gzip", --i15) on the
-     card; the output must round-trip through zlib, every kernel must
-     have launched 15 times, no block may fall back to the host engine,
-     and the size must be within 2% of the native engine's.
-  4. profile: one more compress under torch.profiler -- host time per
-     pipeline stage, device time per kernel, the device's idle share.
-     It fails only if the profiler fails or sees no device time.
+     card at the defaults (device seed): it must round-trip through
+     zlib, launch scan and traceback 15 + (seed programs) times and
+     hist_cost at least once, call no host greedy parse, fall back to
+     the host engine for no block, and stay within 2% of the native
+     engine's size.  One warm ZT_SEED=greedy run is timed beside it.
+  4. profile: one more default compress under torch.profiler -- host
+     time per pipeline stage, device time per kernel, the device's idle
+     share.  It fails only if the profiler fails or sees no device time.
+  5. many: compress_many on the corpus files as separate inputs and on
+     two identical adjacent inputs; each output must round-trip alone.
 Then a `kernels` JSON line, and last {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, if any phase fails or no GPU is
 present.  Imports nothing of JAX.
@@ -50,13 +61,17 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def corpus_paths() -> list[str]:
+    """The repo's own text: zopfli_tpu/**/*.py and the root *.md files,
+    sorted by path."""
+    return sorted(glob.glob(os.path.join(HERE, "zopfli_tpu", "**", "*.py"),
+                            recursive=True)
+                  + glob.glob(os.path.join(HERE, "*.md")))
+
+
 def corpus_1mib() -> bytes:
-    """2^20 bytes of the repo's own text: zopfli_tpu/**/*.py and the
-    root *.md files, sorted by path, concatenated, repeated or cut."""
-    paths = sorted(glob.glob(os.path.join(HERE, "zopfli_tpu", "**", "*.py"),
-                             recursive=True)
-                   + glob.glob(os.path.join(HERE, "*.md")))
-    blob = b"".join(open(p, "rb").read() for p in paths)
+    """2^20 bytes of the corpus files, concatenated, repeated or cut."""
+    blob = b"".join(open(p, "rb").read() for p in corpus_paths())
     if not blob:
         raise RuntimeError("no repo text found beside chip_smoke.py")
     return (blob * (MIB // len(blob) + 1))[:MIB]
@@ -93,6 +108,14 @@ def phase_env(zt_scan):
           "ptxas": ptxas})
 
 
+def bytes_bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """(least ms, what bounds it) for the bytes a kernel must move and its
+    f32 operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def phase_kernels(data, dev="cuda"):
     """Each kernel against its plain version at production shapes."""
     import numpy as np
@@ -105,8 +128,8 @@ def phase_kernels(data, dev="cuda"):
 
     dev = torch.device(dev)
     n = len(data)
-    bounds = split_master(Options(numiterations=ITERATIONS), data, 0, n,
-                          native.greedy)
+    bounds = split_master(Options(numiterations=ITERATIONS, engine="native"),
+                          data, 0, n, native.greedy)
     fs = fused_engine.FusedSqueeze(data, [(0, n, bounds)], device=dev)
     seed_ll, seed_d = greedy_seed_stats(data, fs.block_bounds, native.greedy)
     sll, sd, _ = fs.initial_stats(seed_ll, seed_d)
@@ -152,8 +175,7 @@ def phase_kernels(data, dev="cuda"):
     steps = np.arange(tile)
     relax = int(np.clip(tile - steps - 2, 0, sk.W).sum())
     scan_ops = G * nt * (3 * relax + 2 * tile)
-    scan_bound = max(scan_bytes / HBM_BYTES_PER_S,
-                     scan_ops / F32_FLOPS) * 1e3
+    scan_bound, scan_by = bytes_bound(scan_bytes, scan_ops)
     # Traceback: the path rows it must read (ce, and lit at literals),
     # tile_nbytes and the symbol tables, and both outputs written once.
     path = pe_k != 0
@@ -163,7 +185,7 @@ def phase_kernels(data, dev="cuda"):
     tb_bytes = (4 * npath + 4 * nlit + 4 * G * nt + symtab.nbytes
                 + hist_k.numel() * 4 + pe_k.numel() * 4)
     tb_ops = 4 * npath
-    tb_bound = max(tb_bytes / HBM_BYTES_PER_S, tb_ops / F32_FLOPS) * 1e3
+    tb_bound, tb_by = bytes_bound(tb_bytes, tb_ops)
 
     # One warm scan + traceback pair, with symtab as FusedSqueeze holds
     # it, must not sync the stream.
@@ -177,17 +199,21 @@ def phase_kernels(data, dev="cuda"):
     checks["no_sync"] = True
 
     checks.update(_case_checks(dev))
+    seed_report, seed_checks, k3 = _seed_checks(data, dev)
+    checks.update(seed_checks)
     ok = all(checks.values())
     emit({"phase": "kernels", "ok": ok, "bit_equal": checks,
           "shape": {"groups": G, "tile": tile, "lanes": nt, "kbp": kbp},
           "smem_bytes": {
               "scan": sk.build_kernels()["scan"].zt_scan_smem_bytes(kbp),
               "traceback": sk.build_kernels()[
-                  "traceback"].zt_traceback_smem_bytes(tile)},
+                  "traceback"].zt_traceback_smem_bytes(tile),
+              "hist_cost": sk.build_kernels()[
+                  "hist_cost"].zt_hist_cost_smem_bytes()},
           "path_rows": npath, "path_rows_max_lane": npath_max,
           "scan_ms": scan_ms,
           "scan_plain_ms": scan_plain_ms, "traceback_ms": tb_ms,
-          "traceback_plain_ms": tb_plain_ms})
+          "traceback_plain_ms": tb_plain_ms, "seed": seed_report})
     if not ok:
         raise RuntimeError(f"kernel disagrees with its plain version: "
                            f"{checks}")
@@ -196,20 +222,164 @@ def phase_kernels(data, dev="cuda"):
                  "source": "zopfli_tpu_torch/csrc/scan.cu",
                  "replaces": sk.REPLACES["scan"], "max_abs_err": scan_err,
                  "ms": scan_ms, "plain_ms": scan_plain_ms,
-                 "bound_ms": scan_bound,
-                 "bound_by": ("bytes" if scan_bytes / HBM_BYTES_PER_S
-                              >= scan_ops / F32_FLOPS else "operations"),
+                 "bound_ms": scan_bound, "bound_by": scan_by,
                  "library_ms": None},
         "traceback": {"name": "traceback", "route": "cuda",
                       "source": "zopfli_tpu_torch/csrc/traceback.cu",
                       "replaces": sk.REPLACES["traceback"],
                       "max_abs_err": tb_err, "ms": tb_ms,
                       "plain_ms": tb_plain_ms, "bound_ms": tb_bound,
-                      "bound_by": ("bytes" if tb_bytes / HBM_BYTES_PER_S
-                                   >= tb_ops / F32_FLOPS
-                                   else "operations"),
-                      "library_ms": None},
+                      "bound_by": tb_by, "library_ms": None},
+        "hist_cost": k3,
     }
+
+
+def _hist_edge_batch(rng, B):
+    """Seeded random (B, 288) / (B, 32) counts with edge rows: all zero,
+    one symbol, two symbols, all 288 nonzero, long equal runs (the RLE
+    path), counts near 2^24."""
+    import numpy as np
+
+    ll = rng.integers(0, 3000, (B, 288)) * (rng.random((B, 288)) < 0.5)
+    d = rng.integers(0, 500, (B, 32)) * (rng.random((B, 32)) < 0.6)
+    edges = [(np.zeros(288, np.int64), np.zeros(32, np.int64))]  # zero
+    one = np.zeros(288, np.int64)
+    one[65] = 9
+    edges.append((one, np.eye(32, dtype=np.int64)[3]))     # one symbol
+    two = np.zeros(288, np.int64)
+    two[[1, 270]] = [4, 5]
+    edges.append((two, np.zeros(32, np.int64)))            # two symbols
+    edges.append((rng.integers(1, 100, 288),
+                  rng.integers(1, 100, 32)))               # all nonzero
+    runs = np.full(288, 7)
+    runs[100:140] = 0
+    runs[200:230] = 12
+    edges.append((runs, np.full(32, 3)))                   # long runs
+    edges.append((rng.integers((1 << 24) - 1000, 1 << 24, 288),
+                  rng.integers((1 << 24) - 100, 1 << 24, 32)))  # ~2^24
+    for i, (a, b) in enumerate(edges[:B]):
+        ll[i], d[i] = a, b
+    ll[:, 286:] = 0
+    d[:, 30:] = 0
+    return ll, d
+
+
+def _seed_checks(data, dev):
+    """The seed program's kernels on its real inputs, hist_cost, and the
+    device split against the host splitter on the seed parse."""
+    import numpy as np
+    import torch
+
+    from zopfli_tpu_torch import blocks
+    from zopfli_tpu_torch.deflate import Options, scaled_maxblocks
+    from zopfli_tpu_torch.lz77 import LZ77Store
+    from zopfli_tpu_torch.ops import costmodel as cm
+    from zopfli_tpu_torch.ops import devsplit, hashmatch, seed
+    from zopfli_tpu_torch.ops import scan_kernel as sk
+
+    n = len(data)
+    mb = scaled_maxblocks(Options(), n)
+    buf, cap, min_pos, inend_real = seed.master_buffer(data, 0, n)
+    core = seed.make_seed_core(
+        cap, mb, tuple(sorted(hashmatch.current_knobs().items())))
+    bufd = torch.from_numpy(buf).to(dev)
+    scan_args, lit_t, nbytes_g, _bl, _bd = core.scan_inputs(
+        bufd, min_pos, inend_real)
+    G = core.G
+    checks, report = {}, {"groups": G, "lanes_used": int(
+        (nbytes_g > 0).sum())}
+
+    # K1 / K2 on the fixed-cost inputs (integer costs, many exact ties).
+    ce, cost = sk.scan(*scan_args, groups=G)
+    pce, pcost = sk.scan_plain(*scan_args, groups=G)
+    hist, pe = sk.traceback(ce, lit_t, nbytes_g, core.symtab, groups=G)
+    phist, ppe = sk.traceback_plain(ce, lit_t, nbytes_g, core.symtab,
+                                    groups=G)
+    checks["seed_scan"] = torch.equal(ce, pce) and torch.equal(
+        cost.view(torch.int32), pcost.view(torch.int32))
+    checks["seed_traceback"] = torch.equal(hist, phist) and torch.equal(
+        pe, ppe)
+    report["scan_ms"] = cuda_time_ms(lambda: sk.scan(*scan_args, groups=G),
+                                     reps=10)
+    report["traceback_ms"] = cuda_time_ms(lambda: sk.traceback(
+        ce, lit_t, nbytes_g, core.symtab, groups=G), reps=20)
+    report["scan_plain_ms"] = cuda_time_ms(
+        lambda: sk.scan_plain(*scan_args, groups=G), reps=1, warm=0)
+    report["traceback_plain_ms"] = cuda_time_ms(lambda: sk.traceback_plain(
+        ce, lit_t, nbytes_g, core.symtab, groups=G), reps=1, warm=0)
+
+    # The whole parse, then the device split against the host splitter
+    # on the same symbol stream.
+    t0 = time.time()
+    parsed = core.parse(bufd, min_pos, inend_real)
+    nsym = int(parsed[3])
+    report["parse_s"] = time.time() - t0
+    lit_s, dist_s = (t[:nsym].cpu().numpy().astype(np.uint16)
+                     for t in parsed[:2])
+    before = dict(devsplit.STATS)
+    t0 = time.time()
+    sp, npts = devsplit.split_lz77_device(parsed[0], parsed[1], core.DCAP,
+                                          mb, nsym)
+    report["device_split_s"] = time.time() - t0
+    report["device_split_rounds"] = (devsplit.STATS["rounds"]
+                                     - before["rounds"])
+    report["device_split_syncs"] = devsplit.STATS["syncs"] - before["syncs"]
+    t0 = time.time()
+    host = blocks.block_split_lz77(LZ77Store(data, lit_s, dist_s, 0), mb)
+    report["host_split_s"] = time.time() - t0
+    report["symbols"] = nsym
+    report["split_points"] = sp[:npts]
+    checks["device_split_vs_host"] = sp[:npts] == host
+
+    # K3 on the seed's per-block histograms, one batch of split-probe
+    # histograms (FindMinimum's first round over the whole stream, with
+    # the segment's own cost), and seeded random batches.
+    out = core.finish(parsed)
+    k3_sets = {"seed_blocks": (out[3], out[4])}
+    ll_sym, d_sym, nbytes = devsplit.stream_symbols(
+        parsed[0], parsed[1], core.DCAP, nsym)
+    ll_ck, d_ck, _ = devsplit.checkpoints(ll_sym, d_sym, nbytes, core.DCAP,
+                                          nsym)
+    step = (nsym - 1) // (devsplit.NUM + 1)
+    p = [1 + (k + 1) * step for k in range(devsplit.NUM)]
+    a = [0] * devsplit.NUM + p + [0]
+    b = p + [nsym] * devsplit.NUM + [nsym]
+    pll, pd = devsplit.prefix_hist_at(
+        ll_ck, d_ck, ll_sym, d_sym,
+        torch.tensor(a + b, dtype=torch.int64, device=dev), core.DCAP)
+    B = len(a)
+    k3_sets["probe_batch"] = (pll[B:] - pll[:B], pd[B:] - pd[:B])
+    rng = np.random.default_rng(11)
+    for rows in (1, 18, 2048):
+        ll, d = _hist_edge_batch(rng, rows)
+        k3_sets[f"random_{rows}"] = (torch.from_numpy(ll).to(dev),
+                                     torch.from_numpy(d).to(dev))
+    k3_err = 0.0
+    for name, (ll, d) in k3_sets.items():
+        got = cm.hist_dynamic_cost(ll, d)
+        want = cm.hist_dynamic_cost_plain(ll, d)
+        checks[f"hist_cost_{name}"] = torch.equal(got, want)
+        k3_err = max(k3_err, float((got - want).abs().max()))
+    ll, d = k3_sets["probe_batch"]
+    k3_ms = cuda_time_ms(lambda: cm.hist_dynamic_cost(ll, d), reps=50)
+    k3_plain = cuda_time_ms(lambda: cm.hist_dynamic_cost_plain(ll, d),
+                            reps=2)
+    ll2, d2 = k3_sets["random_2048"]
+    report["hist_cost_ms_by_rows"] = {
+        "19": k3_ms,
+        "16": cuda_time_ms(lambda: cm.hist_dynamic_cost(*k3_sets[
+            "seed_blocks"]), reps=50),
+        "2048": cuda_time_ms(lambda: cm.hist_dynamic_cost(ll2, d2),
+                             reps=10)}
+    # Least time: each row's 320 int64 counts read once, one int64
+    # written.
+    bound, by = bytes_bound(B * (320 + 1) * 8, 0)
+    k3 = {"name": "hist_cost", "route": "cuda",
+          "source": "zopfli_tpu_torch/csrc/hist_cost.cu",
+          "replaces": sk.REPLACES["hist_cost"], "max_abs_err": k3_err,
+          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": bound,
+          "bound_by": by, "library_ms": None, "rows": B}
+    return report, checks, k3
 
 
 # Card checks beside the production shapes: (groups, tile, lanes, kbp,
@@ -317,55 +487,149 @@ def _case_checks(dev) -> dict:
     return checks
 
 
-def phase_main(data, dev="cuda"):
-    """compress() on the card: round trip, launches, fallbacks, size."""
-    import numpy as np
+def _reset_counters():
+    from zopfli_tpu_torch import squeeze_batched
+    from zopfli_tpu_torch.ops import devsplit, fused_engine, seed
+    from zopfli_tpu_torch.ops import scan_kernel as sk
+
+    for k in sk.LAUNCHES:
+        sk.LAUNCHES[k] = 0
+    for k in devsplit.STATS:
+        devsplit.STATS[k] = 0
+    squeeze_batched.VERIFY_FAILS[0] = 0
+    fused_engine.FETCH_RETRIES[0] = 0
+    seed.PROGRAMS[0] = 0
+
+
+def _counters() -> dict:
+    from zopfli_tpu_torch import squeeze_batched
+    from zopfli_tpu_torch.ops import devsplit, fused_engine, seed
+    from zopfli_tpu_torch.ops import scan_kernel as sk
+
+    return {"launches": dict(sk.LAUNCHES), "split": dict(devsplit.STATS),
+            "seed_programs": seed.PROGRAMS[0],
+            "verify_fails": squeeze_batched.VERIFY_FAILS[0],
+            "fetch_retries": fused_engine.FETCH_RETRIES[0]}
+
+
+def _compress_run(raw: bytes, label: str, dev) -> tuple[dict, bytes]:
+    """One compress with every count set to 0 just before it and read
+    just after; host greedy parses are counted."""
     import torch
 
     import zopfli_tpu_torch as zt
-    from zopfli_tpu_torch import squeeze_batched
-    from zopfli_tpu_torch.ops import fused_engine, scan_kernel as sk
+    from zopfli_tpu_torch import native
 
-    raw = data.tobytes()
-    runs = []
-    for label in ("cold", "warm"):
-        for k in sk.LAUNCHES:
-            sk.LAUNCHES[k] = 0
-        squeeze_batched.VERIFY_FAILS[0] = 0
-        fused_engine.FETCH_RETRIES[0] = 0
+    greedy = native.greedy
+    calls = [0]
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return greedy(*a, **k)
+
+    _reset_counters()
+    native.greedy = counted
+    try:
         t0 = time.time()
         out = zt.compress(raw, "gzip", zt.Options(numiterations=ITERATIONS,
                                                   device=dev))
         torch.cuda.synchronize()
         secs = time.time() - t0
-        runs.append({"run": label, "seconds": secs, "bytes": len(out),
-                     "launches": dict(sk.LAUNCHES),
-                     "verify_fails": squeeze_batched.VERIFY_FAILS[0],
-                     "fetch_retries": fused_engine.FETCH_RETRIES[0],
-                     "roundtrip": zlib.decompress(out, 31) == raw})
-        if label == "cold":
-            first = out
+    finally:
+        native.greedy = greedy
+    run = {"run": label, "seconds": secs, "bytes": len(out),
+           "greedy_calls": calls[0], **_counters(),
+           "roundtrip": zlib.decompress(out, 31) == raw}
+    return run, out
+
+
+def phase_main(data, dev="cuda"):
+    """compress() on the card at the defaults, and one greedy-seeded
+    run: round trip, launches, greedy calls, fallbacks, size."""
+    import torch
+
+    import zopfli_tpu_torch as zt
+
+    raw = data.tobytes()
+    runs, outs = [], []
+    for label in ("cold", "warm"):
+        run, out = _compress_run(raw, label, dev)
+        runs.append(run)
+        outs.append(out)
+    old = os.environ.get("ZT_SEED")
+    os.environ["ZT_SEED"] = "greedy"
+    try:
+        greedy_run, greedy_out = _compress_run(raw, "greedy_warm", dev)
+    finally:
+        if old is None:
+            del os.environ["ZT_SEED"]
+        else:
+            os.environ["ZT_SEED"] = old
     t0 = time.time()
     native_out = zt.compress(raw, "gzip", zt.Options(
         engine="native", numiterations=ITERATIONS))
     native_secs = time.time() - t0
-    ratio = len(first) / len(native_out)
+    ratio = len(outs[0]) / len(native_out)
+
+    def launches_ok(r, seeds):
+        ln = r["launches"]
+        return (ln["scan"] == ln["traceback"] == ITERATIONS + seeds
+                and ln["hist_cost"] > 0)
+
     ok = (all(r["roundtrip"] and r["verify_fails"] == 0
-              and all(v == ITERATIONS for v in r["launches"].values())
-              for r in runs)
-          and out == first and ratio <= 1.02
+              and r["greedy_calls"] == 0 and r["seed_programs"] == 1
+              and launches_ok(r, r["seed_programs"]) for r in runs)
+          and greedy_run["roundtrip"] and greedy_run["verify_fails"] == 0
+          and launches_ok(greedy_run, 0)
+          and outs[1] == outs[0] and ratio <= 1.02
+          and len(greedy_out) / len(native_out) <= 1.02
           and zlib.decompress(native_out, 31) == raw)
     emit({"phase": "main", "ok": ok, "input_bytes": len(raw),
-          "iterations": ITERATIONS, "runs": runs,
+          "iterations": ITERATIONS, "runs": runs + [greedy_run],
           "cold_seconds": runs[0]["seconds"],
           "warm_seconds": runs[1]["seconds"],
-          "output_bytes": len(first), "native_bytes": len(native_out),
+          "greedy_warm_seconds": greedy_run["seconds"],
+          "output_bytes": len(outs[0]), "native_bytes": len(native_out),
+          "greedy_bytes": len(greedy_out),
           "native_seconds": native_secs, "size_vs_native": ratio,
+          "greedy_size_vs_native": len(greedy_out) / len(native_out),
           "fetch_retries": runs[0]["fetch_retries"],
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     if not ok:
         raise RuntimeError("main path check failed")
-    return runs[0]["launches"]
+    return runs[1]["launches"]
+
+
+def phase_many(dev="cuda") -> None:
+    """compress_many on the corpus files as separate inputs, then on two
+    identical adjacent inputs: every output must round-trip alone."""
+    import torch
+
+    import zopfli_tpu_torch as zt
+
+    blobs = [open(p, "rb").read() for p in corpus_paths()]
+    base = max(blobs, key=len)
+    results = {}
+    for label, batch in (("corpus_files", blobs), ("identical_pair",
+                                                   [base, base])):
+        _reset_counters()
+        t0 = time.time()
+        outs = zt.compress_many(batch, "gzip", zt.Options(
+            numiterations=ITERATIONS, device=dev))
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        results[label] = {
+            "inputs": len(batch), "input_bytes": sum(map(len, batch)),
+            "output_bytes": sum(map(len, outs)), "seconds": secs,
+            **_counters(),
+            "roundtrip": all(zlib.decompress(o, 31) == b
+                             for b, o in zip(batch, outs))}
+    ok = all(r["roundtrip"] and r["verify_fails"] == 0
+             and r["launches"]["scan"] > 0 and r["launches"]["traceback"] > 0
+             and r["launches"]["hist_cost"] > 0 for r in results.values())
+    emit({"phase": "many", "ok": ok, **results})
+    if not ok:
+        raise RuntimeError("compress_many check failed")
 
 
 def phase_profile(data) -> None:
@@ -383,6 +647,7 @@ def phase_profile(data) -> None:
     import zopfli_tpu_torch as zt
 
     raw = data.tobytes()
+    _reset_counters()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -407,7 +672,7 @@ def phase_profile(data) -> None:
           "device_busy_ms": busy,
           "device_idle_share": 1.0 - busy / (wall * 1e3),
           "device_launches": sum(k[1] for k in kernels),
-          "ranges_ms": ranges,
+          "ranges_ms": ranges, **_counters(),
           "top_device_ms": [{"ms": ms, "count": n, "name": name[:80]}
                             for ms, n, name in kernels[:12]]})
 
@@ -432,6 +697,7 @@ def main(argv) -> int:
             return 0
         launches = phase_main(data)
         phase_profile(data)
+        phase_many()
         for k, entry in kernels.items():
             entry["launches"] = launches[k]
         emit({"kernels": list(kernels.values())})

@@ -1,13 +1,15 @@
-"""The port's compressed bytes against the JAX package's, end to end.
+"""The port's greedy-seeded path against the JAX package's, end to end.
 
 Reference: zopfli_tpu.compress(..., Options(engine="tpu")) with the
 greedy-seeded front end (ZT_SEED=greedy) on one device (the conftest's 8
 virtual devices would otherwise round the group count up to 8 and
-change the replica fill).  The reference's first split runs on its host
-splitter (ZT_DEVICE_SPLIT=0), as the port's does; its second split stays
-on its device splitter (tests/test_blocks.py holds the two splitters
-equal).  The port: zopfli_tpu_torch.compress on the CPU.  gzip, zlib and
-raw deflate bytes must be identical."""
+change the replica fill).  Both packages run their first split on the
+host splitter (ZT_DEVICE_SPLIT=0) and their second split on the device
+splitter (tests/test_blocks.py and tests/test_torch_devsplit.py hold
+the splitters equal).  The port: zopfli_tpu_torch.compress on the CPU
+with the same settings.  gzip, zlib and raw deflate bytes must be
+identical.  The port's default, device-seeded path is held by
+tests/test_torch_devseed.py."""
 
 import importlib
 import zlib
@@ -49,6 +51,13 @@ CASES = {
     "multimaster": (_mixed(6, 30000), MASTER),
 }
 FORMATS = ("gzip", "zlib", "deflate")
+
+
+@pytest.fixture(autouse=True)
+def greedy_seed(monkeypatch):
+    """The port on the greedy-seeded path, first split on the host."""
+    monkeypatch.setenv("ZT_SEED", "greedy")
+    monkeypatch.setenv("ZT_DEVICE_SPLIT", "0")
 
 
 @pytest.fixture(scope="module")

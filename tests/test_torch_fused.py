@@ -50,7 +50,8 @@ def _jax_candidates(data: np.ndarray, cap: int):
 def runs():
     data = _input()
     n = len(data)
-    bounds = split_master(Options(), data, 0, n, native.greedy)
+    bounds = split_master(Options(engine="native"), data, 0, n,
+                          native.greedy)
     assert len(bounds) > 2, "want a multi-block master"
     masters = [(0, n, bounds)]
     cap = 16384

@@ -37,7 +37,10 @@ def _imported_modules(path):
 
 def test_port_sources_import_no_jax_or_reference():
     files = _port_sources()
-    assert len(files) >= 18
+    assert len(files) >= 21
+    names = {os.path.relpath(f, ROOT) for f in files}
+    assert {"zopfli_tpu_torch/ops/devsplit.py",
+            "zopfli_tpu_torch/ops/seed.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -52,6 +55,9 @@ def test_import_and_compress_leave_jax_unloaded(tmp_path):
         "out = zt.compress(data, 'gzip', zt.Options(device='cpu',"
         " numiterations=2))\n"
         "assert zlib.decompress(out, 31) == data\n"
+        "outs = zt.compress_many([data, data[:99]], 'zlib',"
+        " zt.Options(device='cpu', numiterations=2))\n"
+        "assert [zlib.decompress(o) for o in outs] == [data, data[:99]]\n"
         "mods = [m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'zopfli_tpu.')) or m == 'zopfli_tpu']\n"
         "print(json.dumps(mods))\n")
@@ -84,10 +90,10 @@ def test_native_engine_and_bad_options():
         zt.compress(data, "bz2", zt.Options(device="cpu"))
 
 
-def test_device_seed_is_the_next_slice(monkeypatch):
+def test_mega_is_the_next_slice(monkeypatch):
     import zopfli_tpu_torch as zt
-    monkeypatch.setenv("ZT_SEED", "device")
-    with pytest.raises(NotImplementedError, match="next slice"):
+    monkeypatch.setenv("ZT_MEGA", "1")
+    with pytest.raises(NotImplementedError, match="later slice"):
         zt.compress(b"abc" * 100, "gzip", zt.Options(device="cpu"))
 
 

@@ -9,9 +9,12 @@ reference's ZopfliCompress, src/zopfli/zopfli.h:66-88):
 Formats: "gzip" (RFC 1952), "zlib" (RFC 1950), "deflate" (raw RFC 1951).
 Every output decompresses bit-for-bit to the input with stock zlib.
 
-The default engine ("device") runs the squeeze on Options.device,
-"cuda" unless the caller asks for "cpu"; it raises when that device is
-missing.  engine="native" is the C++ host engine.
+    outs = zopfli_tpu_torch.compress_many([a, b, c], fmt="gzip")
+
+The default engine ("device") runs the seed parse, the block splits and
+the squeeze on Options.device, "cuda" unless the caller asks for "cpu";
+it raises when that device is missing.  engine="native" is the C++ host
+engine.
 """
 
 from __future__ import annotations
@@ -60,6 +63,54 @@ def compress(data, fmt: str = "gzip", options: Options | None = None) -> bytes:
     if options.tracer is not None:
         options.tracer.summary(len(data), len(result), fmt)
     return result
+
+
+def compress_many(blobs, fmt: str = "gzip",
+                  options: Options | None = None) -> list[bytes]:
+    """Compress many independent inputs, batched on the device.
+
+    With the device engine, all inputs' master blocks share the fused
+    engine's lane groups -- one device loop serves many small files
+    (the reference's only analog is the CLI's sequential file loop,
+    zopfli_bin.c:191-211).  The native engine compresses sequentially.
+    Returns one container per input, same semantics as compress().
+    """
+    options = options or Options()
+    if fmt not in FORMATS:
+        raise ValueError(f"unknown format {fmt!r}; expected one of {FORMATS}")
+    blobs = [_as_u8(b) for b in blobs]
+    if options.engine != "device":
+        return [compress(b, fmt, options) for b in blobs]
+
+    from .deflate import deflate_many
+
+    # Empty inputs take the scalar path (fixed empty block rules).
+    idx = [i for i, b in enumerate(blobs) if len(b)]
+    results: list[bytes | None] = [None] * len(blobs)
+    for i, b in enumerate(blobs):
+        if not len(b):
+            results[i] = compress(b, fmt, options)
+    if idx:
+        data = np.concatenate([blobs[i] for i in idx])
+        ranges = []
+        pos = 0
+        for i in idx:
+            ranges.append((pos, pos + len(blobs[i])))
+            pos += len(blobs[i])
+        outs = [BitStream() for _ in idx]
+        deflate_many(options, data, ranges, outs)
+        for k, i in enumerate(idx):
+            payload = outs[k].getvalue()
+            b = blobs[i]
+            if fmt == "deflate":
+                results[i] = payload
+            elif fmt == "gzip":
+                results[i] = containers.gzip_frame(
+                    payload, containers.crc32(b), len(b))
+            else:
+                results[i] = containers.zlib_frame(
+                    payload, containers.adler32(b))
+    return results
 
 
 _WARMED: set = set()

@@ -5,9 +5,12 @@ master blocks processed with the previous bytes visible as LZ77
 dictionary, two-phase block splitting, per-block btype choice with the
 optional fixed-tree re-parse, and the empty-block / stored-block rules.
 
-Two parse engines: "device" -- the fused squeeze (ops.fused_engine) on
-Options.device with greedy-seeded stats, both splits on the host
-splitter -- and "native", the C++ host engine.
+Two parse engines: "device" -- the device seed program (ops.seed: a
+fixed-cost parse and the first split) and the fused squeeze
+(ops.fused_engine) on Options.device, the second split on the device
+(ops.devsplit) -- and "native", the C++ host engine.  ZT_SEED=greedy
+keeps the greedy-seeded device path: the host greedy parse seeds the
+stats and feeds the first split.
 """
 
 from __future__ import annotations
@@ -206,14 +209,10 @@ def add_lz77_block_auto_type(options: Options, final: bool, store: LZ77Store,
         add_lz77_block(options, 2, final, store, lstart, lend, out)
 
 
-def _check_seed_mode() -> None:
-    """The device engine seeds from the host greedy parse (ZT_SEED unset
-    or "greedy"); the device seed program is not ported yet."""
-    if os.environ.get("ZT_SEED", "greedy") == "device":
-        raise NotImplementedError(
-            "ZT_SEED=device needs the device seed and device split "
-            "(ops/seed.py, ops/devsplit.py), the next slice of the port; "
-            "unset ZT_SEED or set ZT_SEED=greedy")
+def _use_devseed() -> bool:
+    """The device engine seeds and splits on the device by default
+    (ZT_SEED=greedy restores the host-greedy seed for A/B comparison)."""
+    return os.environ.get("ZT_SEED", "device") == "device"
 
 
 def tpu_master_size() -> int:
@@ -237,15 +236,43 @@ def scaled_maxblocks(options: Options, nbytes: int) -> int:
     return mb
 
 
+def _devseed_trace(tracer, entry):
+    """Per-block iteration hook factory over a devseed entry."""
+    if tracer is None or entry[2] is None:
+        return None
+    fs = entry[2]
+    hooks = [tracer.block_iteration_hook(bs, be)
+             for (bs, be) in fs.block_bounds]
+    return lambda b, i, cost: hooks[b](i, cost)
+
+
 def split_master(options: Options, data: np.ndarray, instart: int,
                  inend: int, greedy_fn) -> list[int]:
-    """Block-split of one master on the host splitter -> bounds incl.
-    endpoints."""
-    if not options.blocksplitting:
+    """Block-split of one master's greedy parse -> bounds incl. endpoints.
+
+    The device engine runs the split search on the device (ops.devsplit,
+    an exact reproduction of ZopfliBlockSplitLZ77); the native engine
+    uses the host splitter.  ZT_DEVICE_SPLIT=0/1 overrides.
+    """
+    if not options.blocksplitting or inend <= instart:
         return [instart, inend]
     maxblocks = scaled_maxblocks(options, inend - instart)
+    use_dev = os.environ.get("ZT_DEVICE_SPLIT")
+    if use_dev is None:
+        use_dev = "1" if options.engine == "device" else "0"
     with span("zt.split"):
-        pts = blocks.block_split(data, instart, inend, maxblocks, greedy_fn)
+        if use_dev == "1":
+            from .ops.devsplit import block_split_lz77_device
+
+            litlens, dists = greedy_fn(data, instart, inend)
+            store = LZ77Store(data, litlens, dists, instart)
+            lz77_points = block_split_lz77_device(
+                litlens.astype(np.int32), dists.astype(np.int32), maxblocks,
+                device=resolve_device(options))
+            pts = [int(store.pos[p]) for p in lz77_points]
+        else:
+            pts = blocks.block_split(data, instart, inend, maxblocks,
+                                     greedy_fn)
     return [instart] + pts + [inend]
 
 
@@ -266,6 +293,18 @@ def deflate_part(options: Options, btype: int, final: bool, data: np.ndarray,
         add_lz77_block(options, 1, final, store, 0, store.size, out)
         if hasattr(engine, "close"):
             engine.close()
+        return
+
+    if options.engine == "device" and inend > instart and _use_devseed():
+        from .squeeze_batched import devseed_collect, devseed_dispatch
+        entry = devseed_dispatch(data, [(instart, inend)],
+                                 options.numiterations,
+                                 scaled_maxblocks(options, inend - instart),
+                                 device=resolve_device(options))
+        results = devseed_collect(entry, options.numiterations,
+                                  trace=_devseed_trace(tracer, entry))
+        emit_results(options, data, [(instart, inend, final)], results,
+                     lambda i: out, lambda i: engine_factory)
         return
 
     bounds = split_master(options, data, instart, inend, greedy_fn)
@@ -301,15 +340,55 @@ def deflate_part(options: Options, btype: int, final: bool, data: np.ndarray,
     finish_part(options, final, stores, out, engine_factory)
 
 
+def prepare_second_split(options: Options, stores: list):
+    """First half of the device engine's second split, finish_part's
+    presplit: the concatenated store and its stream uploaded to the
+    device (the pow2 capacity floor only bounds the shape set; results
+    are capacity-independent)."""
+    from .ops import devsplit
+
+    lz77 = concat_stores(stores)
+    handle = None
+    if options.blocksplitting and len(stores) > 2:
+        handle = devsplit.block_split_lz77_device_dispatch(
+            lz77.litlens.astype(np.int32), lz77.dists.astype(np.int32),
+            scaled_maxblocks(options, lz77.byte_range(0, lz77.size)),
+            floor=1024, device=resolve_device(options))
+    return lz77, handle
+
+
+def emit_results(options: Options, data: np.ndarray, chunk, results,
+                 out_for, factory_for) -> None:
+    """Emit one devseed chunk's results.
+
+    chunk: [(start, end, fin, ...)]; results from devseed_collect.
+    out_for(i) -> BitStream; factory_for(i) -> engine factory.
+    """
+    presplits = [prepare_second_split(options, res[1])
+                 if res[0] == "stores" else None for res in results]
+    for i, (m, res, ps) in enumerate(zip(chunk, results, presplits)):
+        start, end, fin = m[0], m[1], m[2]
+        if res[0] == "stored":
+            add_non_compressed_block(fin, data, start, end, out_for(i))
+        else:
+            finish_part(options, fin, res[1], out_for(i), factory_for(i),
+                        presplit=ps)
+
+
 def finish_part(options: Options, final: bool, stores: list,
-                out: BitStream, engine_factory) -> None:
-    """Second split attempt + emission for one master's parsed blocks."""
+                out: BitStream, engine_factory, presplit=None) -> None:
+    """Second split attempt + emission for one master's parsed blocks.
+
+    presplit: optional (lz77, handle) from prepare_second_split.
+    """
     with span("zt.finish"):
-        _finish_part(options, final, stores, out, engine_factory)
+        _finish_part(options, final, stores, out, engine_factory, presplit)
 
 
 def _finish_part(options: Options, final: bool, stores: list,
-                 out: BitStream, engine_factory) -> None:
+                 out: BitStream, engine_factory, presplit) -> None:
+    from .ops import devsplit
+
     tracer = options.tracer
     totalcost = 0.0
     splitpoints = []
@@ -320,18 +399,21 @@ def _finish_part(options: Options, final: bool, stores: list,
         if i + 1 < len(stores):
             splitpoints.append(acc)
 
-    lz77 = concat_stores(stores)
+    if presplit is None and options.engine == "device":
+        presplit = prepare_second_split(options, stores)
+    lz77 = presplit[0] if presplit is not None else concat_stores(stores)
 
     # Second splitting attempt on the optimal parse (deflate.c:872-893).
-    # The device engine's masters may exceed the reference's, so its
-    # block budget is scaled as for the first split.
+    # The device engine splits on the device, with its block budget
+    # scaled as for the first split (its masters may exceed the
+    # reference's).
     if options.blocksplitting and len(splitpoints) > 1:
-        if options.engine == "device":
-            maxblocks = scaled_maxblocks(options,
-                                         lz77.byte_range(0, lz77.size))
+        if presplit is not None:
+            splitpoints2 = devsplit.block_split_lz77_device_collect(
+                presplit[1])
         else:
-            maxblocks = options.blocksplittingmax
-        splitpoints2 = blocks.block_split_lz77(lz77, maxblocks)
+            splitpoints2 = blocks.block_split_lz77(
+                lz77, options.blocksplittingmax)
         totalcost2 = 0.0
         bounds2 = [0] + splitpoints2 + [lz77.size]
         for i in range(len(bounds2) - 1):
@@ -364,7 +446,6 @@ def deflate(options: Options, btype: int, final: bool, data: np.ndarray,
                          f"of {ENGINES}")
     if options.engine == "device":
         resolve_device(options)
-        _check_seed_mode()
     data = np.ascontiguousarray(np.frombuffer(bytes(data), dtype=np.uint8)
                                 if not isinstance(data, np.ndarray) else data)
     insize = len(data)
@@ -419,27 +500,16 @@ def _deflate_fused_masters(options: Options, data: np.ndarray, masters,
     Masters are chunked by estimated tile count (ZT_TILE_BUDGET) so
     chunks fill the bucketed lane-group geometry; the free lanes, and so
     the replicas, depend on this chunking.  While the device runs chunk
-    N, the host splits chunk N+1 and then emits chunk N-1.
+    N, the host emits chunk N-1.
     """
-    from .ops import fused_engine
     from .squeeze_batched import fused_collect, fused_dispatch
 
     device = resolve_device(options)
-    budget = int(os.environ.get(
-        "ZT_TILE_BUDGET", str(4 * fused_engine.LANES)))
-    chunks: list[list] = [[]]
-    acc = 0
-    for m in masters:
-        start, end, _fin = m
-        # Upper bound: block splitting adds at most blocksplittingmax-1
-        # partial tiles on top of the unsplit tile count.
-        est = (-(-(end - start) // fused_engine.TILE)
-               + scaled_maxblocks(options, end - start) + 1)
-        if chunks[-1] and acc + est > budget:
-            chunks.append([])
-            acc = 0
-        chunks[-1].append(m)
-        acc += est
+    chunks = _chunk_masters(options, masters)
+    if _use_devseed():
+        _devseed_pipeline(options, data, chunks, lambda m: 0,
+                          lambda m: out, lambda m: engine_factory, device)
+        return
 
     pending = None  # (chunk, fs, handle)
 
@@ -459,3 +529,101 @@ def _deflate_fused_masters(options: Options, data: np.ndarray, masters,
             emit(pending)
         pending = (chunk, fs, handle)
     emit(pending)
+
+
+def _chunk_masters(options: Options, masters) -> list[list]:
+    """Masters grouped by estimated tile count (ZT_TILE_BUDGET)."""
+    from .ops import fused_engine
+
+    budget = int(os.environ.get(
+        "ZT_TILE_BUDGET", str(4 * fused_engine.LANES)))
+    chunks: list[list] = [[]]
+    acc = 0
+    for m in masters:
+        start, end = m[0], m[1]
+        # Upper bound: block splitting adds at most blocksplittingmax-1
+        # partial tiles on top of the unsplit tile count.
+        est = (-(-(end - start) // fused_engine.TILE)
+               + scaled_maxblocks(options, end - start) + 1)
+        if chunks[-1] and acc + est > budget:
+            chunks.append([])
+            acc = 0
+        chunks[-1].append(m)
+        acc += est
+    return chunks
+
+
+def _devseed_pipeline(options: Options, data, chunks, window_start,
+                      out_for, factory_for, device) -> None:
+    """Software pipeline over chunks of masters: queue chunk N's seed
+    parses, emit chunk N-1 (host) while the device runs them, then
+    finish chunk N's seeds and queue its squeeze.
+
+    window_start(m), out_for(m), factory_for(m): a master's first
+    window byte, BitStream and engine factory.
+    """
+    from .squeeze_batched import (devseed_collect, devseed_dispatch,
+                                  devseed_fire)
+
+    def emit(chunk, entry):
+        results = devseed_collect(entry, options.numiterations,
+                                  trace=_devseed_trace(options.tracer,
+                                                       entry))
+        emit_results(options, data, chunk, results,
+                     lambda i: out_for(chunk[i]),
+                     lambda i: factory_for(chunk[i]))
+
+    pending = None  # (chunk, entry)
+    for chunk in chunks:
+        ranges = [(m[0], m[1]) for m in chunk]
+        wstarts = [window_start(m) for m in chunk]
+        mb = max(scaled_maxblocks(options, end - start)
+                 for (start, end) in ranges)
+        fired = devseed_fire(data, ranges, mb, window_starts=wstarts,
+                             device=device)
+        if pending is not None:
+            emit(*pending)
+        entry = devseed_dispatch(data, ranges, options.numiterations, mb,
+                                 window_starts=wstarts, fired=fired,
+                                 device=device)
+        pending = (chunk, entry)
+    emit(*pending)
+
+
+def deflate_many(options: Options, data: np.ndarray, blob_ranges,
+                 outs: list[BitStream]) -> None:
+    """Compress many independent inputs in shared fused device batches.
+
+    data concatenates the inputs; blob_ranges[i] = (start, end) of input
+    i, whose raw DEFLATE stream is emitted into outs[i].  All inputs'
+    masters share the fused engine's lane groups (one device loop covers
+    many small files -- the reference's only analog is the CLI's
+    sequential per-file loop, zopfli_bin.c:191-211), with the LZ77 window
+    clamped at each input's start.
+    """
+    device = resolve_device(options)
+    engine_factory = default_engine_factory(options)
+    msize = tpu_master_size()
+    masters = []            # (start, end, final, blob_idx)
+    for bi, (bs, be) in enumerate(blob_ranges):
+        i = bs
+        while True:
+            fin = i + msize >= be
+            size = (be - i) if fin else msize
+            masters.append((i, i + size, fin, bi))
+            i += size
+            if i >= be:
+                break
+    blob_start = [bs for (bs, _be) in blob_ranges]
+
+    def blob_factory(bi):
+        """Auxiliary host engines (fixed re-parse probes) must not see
+        bytes before this input's start -- clamp via a view."""
+        bs = blob_start[bi]
+        if bs == 0:
+            return engine_factory
+        return lambda d, s, e: engine_factory(d[bs:], s - bs, e - bs)
+
+    _devseed_pipeline(options, data, _chunk_masters(options, masters),
+                      lambda m: blob_start[m[3]], lambda m: outs[m[3]],
+                      lambda m: blob_factory(m[3]), device)

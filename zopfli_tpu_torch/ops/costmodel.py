@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import spec
+from . import scan_kernel
 
 INF = 1 << 29
 
@@ -190,16 +191,19 @@ def rle_optimize(counts: torch.Tensor) -> torch.Tensor:
         stride = torch.where(boundary, 0, stride) + 1
         ssum = torch.where(boundary, 0, ssum) + add_all[:, i]
 
-    ev_on = torch.stack(ev_on)                                 # (E, B)
-    ev_start = torch.stack(ev_start)
-    ev_val = torch.stack(ev_val)
-    # Apply the (non-overlapping) range fills [start, event_step).
-    ev_i = torch.arange(n + 1, device=dev)[:, None, None]      # (E, 1, 1)
-    pos = iota[None, :, :]                                     # (1, 1, n)
-    cover = (ev_on[:, :, None] & (ev_start[:, :, None] <= pos)
-             & (pos < ev_i))
-    filled = torch.where(cover, ev_val[:, :, None], 0).sum(dim=0)
-    covered = cover.any(dim=0)
+    # Apply the (non-overlapping) range fills [start, event_step) as
+    # +value / -value steps at their ends, summed along the row; events
+    # that are off add 0 at column n, past the row.
+    on = torch.stack(ev_on, dim=1)                             # (B, E)
+    ends = torch.where(on, torch.arange(n + 1, device=dev), n)
+    starts = torch.where(on, torch.stack(ev_start, dim=1), n)
+    vals = torch.where(on, torch.stack(ev_val, dim=1), 0)
+    step = torch.zeros((B, n + 1), dtype=torch.int64, device=dev)
+    step.scatter_add_(1, starts, vals).scatter_add_(1, ends, -vals)
+    cover = torch.zeros((B, n + 1), dtype=torch.int64, device=dev)
+    cover.scatter_add_(1, starts, on.long()).scatter_add_(1, ends, -on.long())
+    filled = torch.cumsum(step, dim=1)[:, :n]
+    covered = torch.cumsum(cover, dim=1)[:, :n] > 0
     return torch.where(covered, filled, counts)
 
 
@@ -248,8 +252,6 @@ def tree_size(ll_lengths: torch.Tensor,
     runlen = end - start
     sym = joint
     use_run = (ij == start) & valid               # one contribution per run
-    sym_oh = (sym.clamp(0, 15)[:, :, None]
-              == torch.arange(16, device=dev)[None, None, :])
 
     sizes = []
     for v in range(8):
@@ -291,8 +293,10 @@ def tree_size(ll_lengths: torch.Tensor,
         n17 = torch.where(use_run, n17, 0)
         n18 = torch.where(use_run, n18, 0)
 
-        # Segment-sum into the 19-symbol cl histogram.
-        cl_own = torch.where(sym_oh, own[:, :, None], 0).sum(dim=1)
+        # Segment-sum into the 19-symbol cl histogram (runs of the -1
+        # sentinel contribute 0).
+        cl_own = torch.zeros((B, 16), dtype=torch.int64, device=dev)
+        cl_own.scatter_add_(1, sym.clamp(0, 15), own)
         sizes.append(torch.cat([
             cl_own, n16.sum(dim=1)[:, None], n17.sum(dim=1)[:, None],
             n18.sum(dim=1)[:, None]], dim=1))     # (B, 19)
@@ -340,10 +344,38 @@ def hist_dynamic_cost(ll_counts: torch.Tensor,
                       d_counts: torch.Tensor) -> torch.Tensor:
     """Exact dynamic-block tree+data bits from histograms (batched).
 
+    ll_counts: (B, 288), d_counts: (B, 32) integers.  Returns (B,) int64
+    bits.  A CPU tensor takes the plain version; a CUDA tensor launches
+    the CUDA kernel (csrc/hist_cost.cu) or raises.
+    """
+    if scan_kernel.device_kind(ll_counts) == "cpu":
+        return hist_dynamic_cost_plain(ll_counts, d_counts)
+    B = ll_counts.shape[0]
+    if B == 0:
+        return torch.zeros(0, dtype=torch.int64, device=ll_counts.device)
+    ll = ll_counts.to(torch.int64).contiguous()
+    d = d_counts.to(torch.int64).contiguous()
+    scan_kernel.check(ll, torch.int64, (B, spec.NUM_LL), "ll_counts")
+    scan_kernel.check(d, torch.int64, (B, spec.NUM_D), "d_counts")
+    if d.device != ll.device:
+        raise ValueError("hist_dynamic_cost: inputs on different devices")
+    lib = scan_kernel.build_kernels()["hist_cost"]
+    out = torch.empty(B, dtype=torch.int64, device=ll.device)
+    stream = torch.cuda.current_stream(ll.device).cuda_stream
+    scan_kernel.raise_on(lib.zt_hist_cost(ll.data_ptr(), d.data_ptr(),
+                                          out.data_ptr(), B, stream),
+                         "hist_cost")
+    scan_kernel.LAUNCHES["hist_cost"] += 1
+    return out
+
+
+def hist_dynamic_cost_plain(ll_counts: torch.Tensor,
+                            d_counts: torch.Tensor) -> torch.Tensor:
+    """Plain version of the hist_cost kernel (hist_dynamic_cost's contract).
+
     Mirrors native HistDynamicCost / GetDynamicLengths
     (deflate.c:525-582): plain lengths vs RleOptimize'd lengths, keep
-    the smaller total.  ll_counts: (B, 288), d_counts: (B, 32).
-    Returns (B,) int64 bits.
+    the smaller total.
     """
     ll_counts = ll_counts.long().clone()
     ll_counts[:, 256] = 1

@@ -83,23 +83,33 @@ class FusedSqueeze:
     """Device context for a batch of masters' fused squeeze.
 
     masters: list of (instart, inend, block_bounds) with block_bounds =
-    [instart, b1, ..., inend] from the host splitter.  Block and tile
+    [instart, b1, ..., inend] from a block split.  Block and tile
     bookkeeping is global across masters; candidate tables are built
     per master (32 KiB window halo) and concatenated.
     """
 
     def __init__(self, data: np.ndarray, masters, device="cuda",
-                 cand=None):
+                 cand=None, window_starts=None):
         """cand: optional per-master [(bp_len, bp_dist)] arrays (numpy or
         torch) of shape (cap(master), KBP), used instead of building the
-        candidate tables (they depend only on the input bytes).  The LZ77
-        window of every master reaches back over all preceding bytes."""
+        candidate tables (they depend only on the input bytes; the seed
+        program's stay on the device).  window_starts: per-master first
+        byte the LZ77 window may reach back to (default 0 = all
+        preceding bytes; multi-file batches concatenate independent
+        inputs, so matches must not cross)."""
         self.device = dev = torch.device(device)
         self.data = data
         self.masters = [(int(s), int(e), [int(b) for b in bb])
                         for (s, e, bb) in masters]
         for s, e, bb in self.masters:
             assert bb[0] == s and bb[-1] == e and e > s
+        if window_starts is None:
+            window_starts = [0] * len(self.masters)
+        self.window_starts = [int(w) for w in window_starts]
+        # Per-block window start (blocks are global across masters).
+        self.block_wstart = []
+        for (s, e, bb), w in zip(self.masters, self.window_starts):
+            self.block_wstart.extend([w] * (len(bb) - 1))
 
         # --- global blocks & tiles ---
         self.block_bounds = []     # global list of (start, end)
@@ -180,11 +190,14 @@ class FusedSqueeze:
                 zip(self.masters, caps)):
             L = inend - instart
             if cand is not None and cand[mi] is not None:
-                bl, bd = (torch.as_tensor(np.array(a)).to(dev, torch.int32)
+                bl, bd = (a.to(dev, torch.int32)
+                          if isinstance(a, torch.Tensor)
+                          else torch.from_numpy(np.array(a, np.int32)).to(dev)
                           for a in cand[mi])
                 assert tuple(bl.shape) == (cap, KBP), (bl.shape, cap, KBP)
             else:
-                prefix_len = min(instart, spec.WINDOW_SIZE)
+                prefix_len = min(instart - self.window_starts[mi],
+                                 spec.WINDOW_SIZE)
                 total = hashmatch.PREFIX + cap + 264
                 buf = np.empty(total, dtype=np.uint8)
                 buf[:hashmatch.PREFIX] = _filler(hashmatch.PREFIX)
@@ -507,8 +520,9 @@ class FusedSqueeze:
         mp = pos[m]
         md = dists[m].astype(np.int64)
         ml = litlens[m].astype(np.int64)
-        # Matches must stay within the window and the input.
-        if (md > mp).any() \
+        # Matches must stay within this block's window (which starts at
+        # the owning input's first byte in multi-file batches).
+        if (md > mp - self.block_wstart[b]).any() \
                 or (md > spec.WINDOW_SIZE).any():
             return False
         total = int(ml.sum())

@@ -44,13 +44,16 @@ LEN_MASK = (1 << LEN_BITS) - 1
 HBINS = 320      # 288 litlen rows + 32 dist rows
 MAX_KBP = 16     # breakpoints per position the CUDA scan supports
 
-# Kernel launches, counted by the wrappers where they launch a kernel.
-LAUNCHES = {"scan": 0, "traceback": 0}
+# Kernel launches, counted by the wrappers where they launch a kernel
+# (hist_cost's wrapper is costmodel.hist_dynamic_cost).
+LAUNCHES = {"scan": 0, "traceback": 0, "hist_cost": 0}
 
 # What each kernel replaces, for reports.
 REPLACES = {
     "scan": "zopfli_tpu/ops/scan_kernel.py:163",
     "traceback": "zopfli_tpu/ops/scan_kernel.py:289",
+    "hist_cost": "no TPU counterpart: XLA ops at "
+                 "zopfli_tpu/ops/costmodel.py:354",
 }
 
 
@@ -234,7 +237,8 @@ def traceback_plain(ce, lit, tile_nbytes, symtab, groups=1):
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
-SOURCES = {"scan": "csrc/scan.cu", "traceback": "csrc/traceback.cu"}
+SOURCES = {"scan": "csrc/scan.cu", "traceback": "csrc/traceback.cu",
+           "hist_cost": "csrc/hist_cost.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC"]
@@ -259,6 +263,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.zt_scan.argtypes = [vp] * 7 + [ci] * 4 + [vp]
         lib.zt_scan_smem_bytes.restype = sz
         lib.zt_scan_smem_bytes.argtypes = [ci]
+    elif name == "hist_cost":
+        lib.zt_hist_cost.restype = ci
+        lib.zt_hist_cost.argtypes = [vp] * 3 + [ci, vp]
+        lib.zt_hist_cost_smem_bytes.restype = sz
+        lib.zt_hist_cost_smem_bytes.argtypes = []
     else:
         lib.zt_traceback.restype = ci
         lib.zt_traceback.argtypes = [vp] * 7 + [ci] * 4 + [vp]
@@ -309,37 +318,37 @@ def build_kernels() -> dict[str, ctypes.CDLL]:
         return _libs
 
 
-def _check(t: torch.Tensor, dtype, shape, what: str) -> None:
+def check(t: torch.Tensor, dtype, shape, what: str) -> None:
     if t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous():
         raise ValueError(f"{what}: expected contiguous {dtype} {shape}, got "
                          f"{t.dtype} {tuple(t.shape)}")
 
 
-def _device_kind(t: torch.Tensor) -> str:
+def device_kind(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t.device}")
     return t.device.type
 
 
-def _raise_on(rc: int, name: str) -> None:
+def raise_on(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
 def scan(bp_len, bp_dist, bp_dcost, litcost, lcost_vec, groups=1):
     """The DP scan: CUDA kernel on a CUDA tensor, plain version on CPU."""
-    if _device_kind(bp_len) == "cpu":
+    if device_kind(bp_len) == "cpu":
         return scan_plain(bp_len, bp_dist, bp_dcost, litcost, lcost_vec,
                           groups)
     rows, kbp, nt = bp_len.shape
     if rows % groups or kbp > MAX_KBP:
         raise ValueError(f"scan: rows={rows} groups={groups} kbp={kbp}")
-    _check(bp_len, torch.int32, (rows, kbp, nt), "bp_len")
-    _check(bp_dist, torch.int32, (rows, kbp, nt), "bp_dist")
-    _check(bp_dcost, torch.float32, (rows, kbp, nt), "bp_dcost")
-    _check(litcost, torch.float32, (rows, nt), "litcost")
-    _check(lcost_vec, torch.float32, (groups * W, nt), "lcost_vec")
+    check(bp_len, torch.int32, (rows, kbp, nt), "bp_len")
+    check(bp_dist, torch.int32, (rows, kbp, nt), "bp_dist")
+    check(bp_dcost, torch.float32, (rows, kbp, nt), "bp_dcost")
+    check(litcost, torch.float32, (rows, nt), "litcost")
+    check(lcost_vec, torch.float32, (groups * W, nt), "lcost_vec")
     for t in (bp_dist, bp_dcost, litcost, lcost_vec):
         if t.device != bp_len.device:
             raise ValueError("scan: inputs on different devices")
@@ -347,7 +356,7 @@ def scan(bp_len, bp_dist, bp_dcost, litcost, lcost_vec, groups=1):
     ce = torch.empty((rows, nt), dtype=torch.int32, device=bp_len.device)
     cost = torch.empty((rows, nt), dtype=torch.float32, device=bp_len.device)
     stream = torch.cuda.current_stream(bp_len.device).cuda_stream
-    _raise_on(lib.zt_scan(
+    raise_on(lib.zt_scan(
         bp_len.data_ptr(), bp_dist.data_ptr(), bp_dcost.data_ptr(),
         litcost.data_ptr(), lcost_vec.data_ptr(), ce.data_ptr(),
         cost.data_ptr(), groups, rows // groups, kbp, nt, stream), "scan")
@@ -376,14 +385,14 @@ def traceback(ce, lit, tile_nbytes, symtab, groups=1):
         raise ValueError("traceback: symtab must be a host table, got a "
                          f"tensor on {symtab.device}")
     symtab_h = np.asarray(symtab)
-    if _device_kind(ce) == "cpu":
+    if device_kind(ce) == "cpu":
         return traceback_plain(ce, lit, tile_nbytes, symtab_h, groups)
     rows, nt = ce.shape
     if rows % groups:
         raise ValueError(f"traceback: rows={rows} groups={groups}")
-    _check(ce, torch.int32, (rows, nt), "ce")
-    _check(lit, torch.int32, (rows, nt), "lit")
-    _check(tile_nbytes, torch.int32, (groups, nt), "tile_nbytes")
+    check(ce, torch.int32, (rows, nt), "ce")
+    check(lit, torch.int32, (rows, nt), "lit")
+    check(tile_nbytes, torch.int32, (groups, nt), "tile_nbytes")
     for t in (lit, tile_nbytes):
         if t.device != ce.device:
             raise ValueError("traceback: inputs on different devices")
@@ -397,7 +406,7 @@ def traceback(ce, lit, tile_nbytes, symtab, groups=1):
                        device=ce.device)
     pe = torch.empty((rows, nt), dtype=torch.int32, device=ce.device)
     stream = torch.cuda.current_stream(ce.device).cuda_stream
-    _raise_on(lib.zt_traceback(
+    raise_on(lib.zt_traceback(
         ce.data_ptr(), lit.data_ptr(), tile_nbytes.data_ptr(),
         len_bin.data_ptr(), dist_bin.data_ptr(), hist.data_ptr(),
         pe.data_ptr(), groups, rows // groups, nt, DIST_TABLE, stream),

@@ -1,13 +1,16 @@
-"""Fused squeeze drivers: host glue around ops.fused_engine.
+"""Fused squeeze host glue around ops.fused_engine / ops.seed.
 
 The reference's per-block iteration loop (squeeze.c:446-526 -- stats
 feedback, keep-best by exact dynamic-block size, fixed-seed MWC
 randomization, 1.0/0.5 blending) runs on the device inside the fused
-engine; this module owns dispatch/collect with greedy-seeded stats and
-the hash-collision verify + native fallback.
+engine; this module owns dispatch/collect, the greedy-seeded path
+(ZT_SEED=greedy), the device-seeded default path, and the hash-collision
+verify + native fallback.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -86,8 +89,11 @@ def fused_collect(fs, handle, numiterations: int,
             if not fs.verify_parse(b, lit, dst):
                 VERIFY_FAILS[0] += 1
                 # Hash collision (cryptographically unlikely): exact host
-                # fallback for this block using the best stats.
-                eng = native.BlockEngine(data, bs, be)
+                # fallback for this block using the best stats.  Clamp
+                # the window at the owning input's first byte (multi-file
+                # batches concatenate independent inputs).
+                ws = fs.block_wstart[b]
+                eng = native.BlockEngine(data[ws:], bs - ws, be - ws)
                 try:
                     ll_cost = np.asarray(
                         _entropy_f64(best_sll[b]), np.float64)
@@ -105,3 +111,122 @@ def fused_collect(fs, handle, numiterations: int,
 def _entropy_f64(counts: np.ndarray) -> np.ndarray:
     from .entropy import calculate_entropy
     return calculate_entropy(counts.astype(np.int64))
+
+
+# ---------------------------------------------------------------------------
+# Device-seeded path: no host greedy parse.
+# ---------------------------------------------------------------------------
+
+def _check_no_mega() -> None:
+    """The megafused single-dispatch program (ZT_MEGA=1) is not ported."""
+    if os.environ.get("ZT_MEGA", "0") == "1":
+        raise NotImplementedError(
+            "ZT_MEGA=1 needs the megafused program (ops/mega.py), a later "
+            "slice of the port; unset ZT_MEGA")
+
+
+def devseed_fire(data: np.ndarray, ranges, maxblocks: int = 15,
+                 window_starts=None, device="cuda"):
+    """Queue the seed parses for a chunk of masters, without a sync.
+
+    First half of devseed_dispatch, exposed so the caller can do host
+    work (emitting the previous chunk) while the device runs the seed
+    parses -- pass the result as devseed_dispatch(..., fired=...).
+    """
+    from .ops import seed as seed_mod
+
+    _check_no_mega()
+    if window_starts is None:
+        window_starts = [0] * len(ranges)
+    handles = []
+    with span("zt.seed"):
+        for (instart, inend), ws in zip(ranges, window_starts):
+            cheap = seed_mod.probably_incompressible(data, instart, inend)
+            handles.append((cheap, ws, seed_mod.seed_dispatch(
+                data, instart, inend, maxblocks, cheap=cheap,
+                window_start=ws, device=device)))
+    return handles
+
+
+def devseed_dispatch(data: np.ndarray, ranges, numiterations: int,
+                     maxblocks: int = 15, window_starts=None, fired=None,
+                     device="cuda"):
+    """Seed + split + squeeze-dispatch for a chunk of masters, no greedy.
+
+    ranges: [(instart, inend)].  Per master, the seed program (ops.seed)
+    builds candidates, runs the fixed-cost seed parse, splits, and
+    returns seed stats + stored-exit costs; the fused squeeze then reuses
+    the candidate tables.  Masters whose every block prefers stored by a
+    clear margin skip the squeeze entirely.
+
+    window_starts: per-range first byte the LZ77 halo may reach back to
+    (multi-file batches concatenate independent inputs into one array).
+    fired: optional result of devseed_fire (seed parses already queued,
+    so the host could emit the previous chunk in between).
+
+    Returns an opaque entry for devseed_collect().
+    """
+    from .ops import fused_engine
+    from .ops import seed as seed_mod
+
+    if numiterations < 1:
+        raise ValueError("numiterations must be >= 1")
+    if window_starts is None:
+        window_starts = [0] * len(ranges)
+
+    # Every seed parse goes in flight before any result is pulled: the
+    # device stays busy and the host syncs only in the splits.
+    handles = fired if fired is not None else devseed_fire(
+        data, ranges, maxblocks, window_starts, device=device)
+    seeds = []
+    with span("zt.split"):
+        for (instart, inend), (cheap, ws, h) in zip(ranges, handles):
+            sr = seed_mod.seed_finish(h)
+            if cheap and not sr.all_stored:
+                # Probe false positive: redo with full-quality candidates.
+                sr = seed_mod.seed_master(data, instart, inend, maxblocks,
+                                          cheap=False, window_start=ws,
+                                          device=device)
+            seeds.append(sr)
+
+    live = [i for i, sr in enumerate(seeds) if not sr.all_stored]
+    fs = handle = None
+    if live:
+        masters = [(ranges[i][0], ranges[i][1], seeds[i].bounds)
+                   for i in live]
+        cand = [(seeds[i].bp_len, seeds[i].bp_dist) for i in live]
+        fs = fused_engine.FusedSqueeze(data, masters, device=device,
+                                       cand=cand,
+                                       window_starts=[window_starts[i]
+                                                      for i in live])
+        # Exact density prediction from the seed parse (pow2-bucketed).
+        want = int(max(seeds[i].max_lane_rows for i in live) * 1.5) + 8
+        cap = 512
+        while cap < want and cap < fused_engine.TILE:
+            cap *= 2
+        fs.default_fetch_cap = min(cap, fused_engine.TILE)
+
+        seed_ll = np.vstack([seeds[i].seed_ll for i in live])
+        seed_d = np.vstack([seeds[i].seed_d for i in live])
+        handle = fs.dispatch(seed_ll, seed_d, numiterations)
+    return (ranges, seeds, fs, handle)
+
+
+def devseed_collect(entry, numiterations: int, trace=None):
+    """Blocking half of devseed_dispatch.
+
+    Returns one result per master: ("stores", [LZ77Store...]) for
+    squeezed masters, ("stored", instart, inend) for stored-exit ones.
+    """
+    ranges, seeds, fs, handle = entry
+    if fs is not None:
+        all_stores = fused_collect(fs, handle, numiterations, trace=trace)
+    results = []
+    k = 0
+    for sr, (instart, inend) in zip(seeds, ranges):
+        if sr.all_stored:
+            results.append(("stored", instart, inend))
+        else:
+            results.append(("stores", all_stores[k]))
+            k += 1
+    return results
