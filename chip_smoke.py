@@ -15,16 +15,28 @@ Phases, each printed as one JSON line:
        - hist_cost on the seed's per-block histograms, on one batch of
          split-probe histograms, and on seeded random batches of 1, 18
          and 2048 rows with edge rows;
+       - autotype_cost on the first probe rounds of the seed's device
+         split and its largest round, and on seeded random ranges with
+         edge cases (ends on and beside checkpoints, ends at ncap, empty
+         and reversed ranges, ranges inside one checkpoint) under each
+         fixed-cost gate (the whole store's, true and false, and one
+         per range); one probe round under torch.profiler must be
+         one kernel and two copies;
+       - where a K3 row's cycles go, phase by phase, in the first design
+         and in this one (experiments/exp_hist_cost_phases.py);
        - then the CASES shapes on seeded random inputs (ties, unsorted
          breakpoints, odd tiles and lane counts, cut paths).
      Outputs must be bit-equal, and one warm scan + traceback pair must
      not sync the stream.  The device split of the seed parse must equal
      the host splitter on the same stream.  Times are CUDA-event means
-     over warm launches.
+     over warm launches (for the two cost kernels, `ms` is of launches
+     captured in a CUDA graph, so that their Python wrapper is out of
+     the time, and `ms_eager` of eager calls back to back).
   3. main path: zopfli_tpu_torch.compress(1 MiB, "gzip", --i15) on the
      card at the defaults (device seed): it must round-trip through
-     zlib, launch scan and traceback 15 + (seed programs) times and
-     hist_cost at least once, call no host greedy parse, fall back to
+     zlib, launch scan and traceback 15 + (seed programs) times,
+     hist_cost at least once and autotype_cost once per split probe
+     round, call no host greedy parse, fall back to
      the host engine for no block, and stay within 2% of the native
      engine's size.  One warm ZT_SEED=greedy run is timed beside it.
   4. profile: one more default compress under torch.profiler -- host
@@ -52,9 +64,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 MIB = 1 << 20
 ITERATIONS = 15
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s
-# outside the tensor cores.
+# outside the tensor cores.  int32 operations: 64 INT32 lanes per SM
+# (Hopper architecture white paper) x 132 SMs x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+INT32_OPS = 64 * 132 * 1.98e9
 
 
 def emit(obj) -> None:
@@ -108,12 +122,39 @@ def phase_env(zt_scan):
           "ptxas": ptxas})
 
 
-def bytes_bound(nbytes: float, ops: float) -> tuple[float, str]:
-    """(least ms, what bounds it) for the bytes a kernel must move and its
-    f32 operations."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_FLOPS
+def bytes_bound(nbytes: float, ops: float,
+                int_ops: float = 0) -> tuple[float, str]:
+    """(least ms, what bounds it) for the bytes a kernel must move, its
+    f32 operations and its int32 operations."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_FLOPS + int_ops / INT32_OPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def graph_time_ms(fn, reps: int) -> float:
+    """Device ms per call of fn: `reps` calls captured in one CUDA graph,
+    replayed between CUDA events, so the host's launch cost is out of
+    the time (for kernels shorter than their Python wrapper)."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def phase_kernels(data, dev="cuda"):
@@ -199,7 +240,7 @@ def phase_kernels(data, dev="cuda"):
     checks["no_sync"] = True
 
     checks.update(_case_checks(dev))
-    seed_report, seed_checks, k3 = _seed_checks(data, dev)
+    seed_report, seed_checks, k3s = _seed_checks(data, dev)
     checks.update(seed_checks)
     ok = all(checks.values())
     emit({"phase": "kernels", "ok": ok, "bit_equal": checks,
@@ -230,7 +271,7 @@ def phase_kernels(data, dev="cuda"):
                       "max_abs_err": tb_err, "ms": tb_ms,
                       "plain_ms": tb_plain_ms, "bound_ms": tb_bound,
                       "bound_by": tb_by, "library_ms": None},
-        "hist_cost": k3,
+        **k3s,
     }
 
 
@@ -316,11 +357,24 @@ def _seed_checks(data, dev):
     report["parse_s"] = time.time() - t0
     lit_s, dist_s = (t[:nsym].cpu().numpy().astype(np.uint16)
                      for t in parsed[:2])
+    # The device split; its probe rounds are recorded for the checks of
+    # the autotype_cost kernel below.
+    rounds = []
+    probe_round = devsplit.probe_round
+
+    def recording(tabs, pa, pb, ncap, small):
+        rounds.append((pa.copy(), pb.copy(), small))
+        return probe_round(tabs, pa, pb, ncap, small)
+
     before = dict(devsplit.STATS)
-    t0 = time.time()
-    sp, npts = devsplit.split_lz77_device(parsed[0], parsed[1], core.DCAP,
-                                          mb, nsym)
-    report["device_split_s"] = time.time() - t0
+    devsplit.probe_round = recording
+    try:
+        t0 = time.time()
+        sp, npts = devsplit.split_lz77_device(parsed[0], parsed[1],
+                                              core.DCAP, mb, nsym)
+        report["device_split_s"] = time.time() - t0
+    finally:
+        devsplit.probe_round = probe_round
     report["device_split_rounds"] = (devsplit.STATS["rounds"]
                                      - before["rounds"])
     report["device_split_syncs"] = devsplit.STATS["syncs"] - before["syncs"]
@@ -338,17 +392,14 @@ def _seed_checks(data, dev):
     k3_sets = {"seed_blocks": (out[3], out[4])}
     ll_sym, d_sym, nbytes = devsplit.stream_symbols(
         parsed[0], parsed[1], core.DCAP, nsym)
-    ll_ck, d_ck, _ = devsplit.checkpoints(ll_sym, d_sym, nbytes, core.DCAP,
-                                          nsym)
+    ll_ck, d_ck, bcum = devsplit.checkpoints(ll_sym, d_sym, nbytes,
+                                             core.DCAP, nsym)
+    tabs = (ll_ck, d_ck, ll_sym, d_sym, bcum)
     step = (nsym - 1) // (devsplit.NUM + 1)
     p = [1 + (k + 1) * step for k in range(devsplit.NUM)]
     a = [0] * devsplit.NUM + p + [0]
     b = p + [nsym] * devsplit.NUM + [nsym]
-    pll, pd = devsplit.prefix_hist_at(
-        ll_ck, d_ck, ll_sym, d_sym,
-        torch.tensor(a + b, dtype=torch.int64, device=dev), core.DCAP)
-    B = len(a)
-    k3_sets["probe_batch"] = (pll[B:] - pll[:B], pd[B:] - pd[:B])
+    k3_sets["probe_batch"] = _range_hists(devsplit, tabs, a, b, core.DCAP)
     rng = np.random.default_rng(11)
     for rows in (1, 18, 2048):
         ll, d = _hist_edge_batch(rng, rows)
@@ -361,25 +412,197 @@ def _seed_checks(data, dev):
         checks[f"hist_cost_{name}"] = torch.equal(got, want)
         k3_err = max(k3_err, float((got - want).abs().max()))
     ll, d = k3_sets["probe_batch"]
-    k3_ms = cuda_time_ms(lambda: cm.hist_dynamic_cost(ll, d), reps=50)
+    B = ll.shape[0]
+    k3_ms = graph_time_ms(lambda: cm.hist_dynamic_cost(ll, d), reps=50)
     k3_plain = cuda_time_ms(lambda: cm.hist_dynamic_cost_plain(ll, d),
                             reps=2)
-    ll2, d2 = k3_sets["random_2048"]
     report["hist_cost_ms_by_rows"] = {
-        "19": k3_ms,
-        "16": cuda_time_ms(lambda: cm.hist_dynamic_cost(*k3_sets[
-            "seed_blocks"]), reps=50),
-        "2048": cuda_time_ms(lambda: cm.hist_dynamic_cost(ll2, d2),
-                             reps=10)}
+        str(ll_.shape[0]): graph_time_ms(
+            lambda: cm.hist_dynamic_cost(ll_, d_),
+            reps=50 if ll_.shape[0] < 100 else 10)
+        for ll_, d_ in (k3_sets["probe_batch"], k3_sets["seed_blocks"],
+                        k3_sets["random_2048"])}
+    k3_eager = cuda_time_ms(lambda: cm.hist_dynamic_cost(ll, d), reps=50)
     # Least time: each row's 320 int64 counts read once, one int64
-    # written.
-    bound, by = bytes_bound(B * (320 + 1) * 8, 0)
+    # written; the integer operations of the algorithm on these rows.
+    bound, by = bytes_bound(B * (320 + 1) * 8, 0, _k3_ops(ll, d))
     k3 = {"name": "hist_cost", "route": "cuda",
           "source": "zopfli_tpu_torch/csrc/hist_cost.cu",
           "replaces": sk.REPLACES["hist_cost"], "max_abs_err": k3_err,
-          "ms": k3_ms, "plain_ms": k3_plain, "bound_ms": bound,
-          "bound_by": by, "library_ms": None, "rows": B}
-    return report, checks, k3
+          "ms": k3_ms, "ms_eager": k3_eager, "plain_ms": k3_plain,
+          "bound_ms": bound, "bound_by": by, "library_ms": None, "rows": B}
+    at, at_checks, at_report = _autotype_checks(
+        devsplit, sk, tabs, rounds, core.DCAP, nsym, dev)
+    checks.update(at_checks)
+    report["autotype_cost"] = at_report
+    report["hist_cost_phases"] = _phase_breakdowns(
+        {"probe_19": k3_sets["probe_batch"],
+         "seed_blocks": k3_sets["seed_blocks"],
+         "random_2048": k3_sets["random_2048"]}, sk, checks)
+    return report, checks, {"hist_cost": k3, "autotype_cost": at}
+
+
+def _range_hists(devsplit, tabs, a, b, ncap):
+    """(ll, d) histograms of the ranges [a[i], b[i]) of a stream."""
+    import torch
+
+    ll_ck, d_ck, ll_sym, d_sym, _ = tabs
+    pts = torch.tensor(list(a) + list(b), dtype=torch.int64,
+                       device=ll_ck.device)
+    pll, pd = devsplit.prefix_hist_at(ll_ck, d_ck, ll_sym, d_sym, pts, ncap)
+    B = len(a)
+    return pll[B:] - pll[:B], pd[B:] - pd[:B]
+
+
+def _k3_ops(ll, d) -> int:
+    """Integer operations of the exact dynamic cost on these rows, counted
+    from the algorithm, not from a kernel: for each of the two code-length
+    sets and both alphabets a sort of the m used symbols (m log2 m
+    compares) and one compare per item of every package-merge level;
+    RleOptimize's pass (4 per symbol); 8 tree-header variants (2 per code
+    length) per set; the payload (2 per symbol) per set."""
+    import numpy as np
+
+    ops = 0
+    for m in np.concatenate([
+            (ll.cpu().numpy() != 0).sum(axis=1) + (ll.cpu().numpy()[:, 256]
+                                                   == 0),
+            (d.cpu().numpy() != 0).sum(axis=1)]):
+        m = int(m)
+        size, merged = m, 0
+        for _ in range(1, min(m - 1, 15)):
+            size = size // 2 + m
+            merged += size
+        ops += 2 * (m * max(1, int(np.ceil(np.log2(max(m, 2))))) + merged)
+    return ops + ll.shape[0] * (4 * 320 + 2 * 8 * 2 * 316 + 2 * 2 * 320)
+
+
+def _autotype_checks(devsplit, sk, tabs, rounds, ncap, nsym, dev):
+    """The autotype_cost kernel against autotype_costs_plain on the
+    split's first probe rounds and its largest one, and on seeded random
+    ranges with edge cases under each fixed-cost gate; its time, bound,
+    and the device work of one probe round under torch.profiler."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    checks, report = {}, {}
+    big = max(range(len(rounds)), key=lambda i: len(rounds[i][0]))
+    sets = {f"round_{i}": rounds[i] for i in sorted({0, 1, 2, 3, big})
+            if i < len(rounds)}
+    edges = [0, 1, 255, 256, 257, 511, 512, 513, nsym - 1, nsym,
+             ncap - 1, ncap]
+    rng = np.random.default_rng(13)
+    ea = np.repeat(edges, len(edges))
+    eb = np.tile(edges, len(edges))
+    ra = rng.integers(0, nsym + 1, 400)
+    rb = np.minimum(ra + rng.integers(-50, 4000, 400), ncap)
+    inside = rng.integers(0, nsym // 256, 20) * 256 + 3   # one checkpoint
+    pa = np.concatenate([ea, ra, inside])
+    pb = np.concatenate([eb, rb, inside + rng.integers(1, 250, 20)])
+    for small in (True, False):
+        sets[f"random_small_{small}"] = (pa, pb, small)
+    sets["random_per_block"] = (pa, pb, torch.from_numpy(
+        rng.random(len(pa)) < 0.5).to(dev))     # the per-block-store rule
+    err = 0.0
+    for name, (a, b, small) in sets.items():
+        ab = torch.from_numpy(np.stack([a, b]).astype(np.int64)).to(dev)
+        got = devsplit.autotype_costs(*tabs, ab[0], ab[1], ncap, small)
+        want = devsplit.autotype_costs_plain(*tabs, ab[0], ab[1], ncap,
+                                             small)
+        checks[f"autotype_cost_{name}"] = torch.equal(got, want)
+        err = max(err, float((got - want).abs().max()))
+
+    a, b, small = rounds[0]
+    ab = torch.from_numpy(np.stack([a, b]).astype(np.int64)).to(dev)
+    call = lambda: devsplit.autotype_costs(*tabs, ab[0], ab[1], ncap, small)
+    ms = graph_time_ms(call, reps=50)
+    plain_ms = cuda_time_ms(lambda: devsplit.autotype_costs_plain(
+        *tabs, ab[0], ab[1], ncap, small), reps=2)
+    a2, b2, small2 = rounds[big]
+    ab2 = torch.from_numpy(np.stack([a2, b2]).astype(np.int64)).to(dev)
+    abr = torch.from_numpy(np.stack([pa, pb]).astype(np.int64)).to(dev)
+    report["ms_by_rows"] = {
+        str(len(a)): ms,
+        str(len(a2)): graph_time_ms(lambda: devsplit.autotype_costs(
+            *tabs, ab2[0], ab2[1], ncap, small2), reps=10),
+        str(len(pa)): graph_time_ms(lambda: devsplit.autotype_costs(
+            *tabs, abr[0], abr[1], ncap, False), reps=10)}
+    ms_eager = cuda_time_ms(call, reps=50)
+    bound, by = _autotype_bound(devsplit, tabs, a, b, ncap)
+
+    # One probe round = one pinned upload, one kernel, one pull.
+    devsplit.probe_round(tabs, a, b, ncap, small)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        devsplit.probe_round(tabs, a, b, ncap, small)
+        torch.cuda.synchronize()
+    dev_events = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+    copies = [n for n in dev_events if "Memcpy" in n or "memcpy" in n]
+    kernels = [n for n in dev_events if n not in copies]
+    report["probe_round_device_work"] = dev_events
+    checks["probe_round_one_kernel"] = (
+        len(kernels) == 1 and "autotype_cost" in kernels[0]
+        and len(copies) == 2)
+    report["rows"] = len(a)
+    report["rounds_checked"] = [k for k in sets if k.startswith("round_")]
+    entry = {"name": "autotype_cost", "route": "cuda",
+             "source": "zopfli_tpu_torch/csrc/hist_cost.cu",
+             "replaces": sk.REPLACES["autotype_cost"], "max_abs_err": err,
+             "ms": ms, "ms_eager": ms_eager, "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": by, "library_ms": None,
+             "rows": len(a)}
+    return entry, checks, report
+
+
+def _autotype_bound(devsplit, tabs, a, b, ncap) -> tuple[float, str]:
+    """Least time of one probe round [a[i], b[i]).  Bytes: each distinct
+    checkpoint row (288 + 32 int64) and each distinct stream symbol
+    (ll_sym and d_sym) read once -- the ranges of a round share their
+    ends -- plus a range's two ends, two byte offsets and its int64 out.
+    Operations, per range: the histogram (320 differences and one add per
+    stream symbol), the fixed cost (2 per symbol) and the dynamic cost."""
+    import numpy as np
+
+    ck = devsplit.CKPT
+    live = b > a
+    a, b = a[live], b[live]
+    ends = np.concatenate([a, b])
+    rows = np.unique(ends // ck)
+    # The symbols [j*ck, e) of every end e in checkpoint j, as a union.
+    last = {}
+    for e in ends:
+        j = int(e) // ck
+        last[j] = max(last.get(j, 0), int(e) - j * ck)
+    nbytes_ = (len(rows) * 320 * 8 + sum(last.values()) * 16
+               + len(a) * 40)
+    part = (a - (a // ck) * ck) + (b - (b // ck) * ck)
+    ll_h, d_h = _range_hists(devsplit, tabs, a, b, ncap)
+    ops = int((320 * 3 + part).sum()) + _k3_ops(ll_h, d_h)
+    return bytes_bound(float(nbytes_), 0, ops)
+
+
+def _phase_breakdowns(sets, sk, checks) -> dict:
+    """Where a K3 row's cycles go, in the first design and in this one
+    (experiments/exp_hist_cost_phases.py: debug builds that stamp
+    clock64() around each phase)."""
+    sys.path.insert(0, os.path.join(HERE, "experiments"))
+    import exp_hist_cost_phases as ehp
+
+    res = ehp.breakdowns(sets, sk)
+    out = {}
+    for variant, per in res.items():
+        for batch, r in per.items():
+            checks[f"phases_{variant}_{batch}_equal"] = r["equal_to_plain"]
+            out[f"{variant}/{batch}"] = {
+                k: r[k] for k in ("rows", "ms", "row_cycles_mean",
+                                  "row_cycles_max", "categories_cycles")}
+            if batch == "probe_19":
+                out[f"{variant}/{batch}"]["phases"] = r["phases"]
+    return out
 
 
 # Card checks beside the production shapes: (groups, tile, lanes, kbp,
@@ -572,9 +795,11 @@ def phase_main(data, dev="cuda"):
     ratio = len(outs[0]) / len(native_out)
 
     def launches_ok(r, seeds):
+        # One autotype_cost launch per probe round of the device splits.
         ln = r["launches"]
         return (ln["scan"] == ln["traceback"] == ITERATIONS + seeds
-                and ln["hist_cost"] > 0)
+                and ln["hist_cost"] > 0
+                and ln["autotype_cost"] == r["split"]["rounds"] > 0)
 
     ok = (all(r["roundtrip"] and r["verify_fails"] == 0
               and r["greedy_calls"] == 0 and r["seed_programs"] == 1
@@ -626,7 +851,9 @@ def phase_many(dev="cuda") -> None:
                              for b, o in zip(batch, outs))}
     ok = all(r["roundtrip"] and r["verify_fails"] == 0
              and r["launches"]["scan"] > 0 and r["launches"]["traceback"] > 0
-             and r["launches"]["hist_cost"] > 0 for r in results.values())
+             and r["launches"]["hist_cost"] > 0
+             and r["launches"]["autotype_cost"] > 0
+             for r in results.values())
     emit({"phase": "many", "ok": ok, **results})
     if not ok:
         raise RuntimeError("compress_many check failed")

@@ -6,17 +6,17 @@ and finds its best single split point with a 9-probe recursive search
 (FindMinimum, blocksplitter.c:43-96), where each probe evaluates the
 exact auto-type block cost of both halves (deflate.c:585-621).  Range
 histograms come from checkpointed cumulative histograms (the lz77.h:56-61
-trick as device tensors) and every probe round's costs are ONE batched
-call of the exact integer cost stack (costmodel.hist_dynamic_cost, a CUDA
-kernel on the card).
+trick as device tensors) and every probe round's costs are ONE launch on
+the card (autotype_costs: range histograms, stored, fixed and exact
+dynamic costs in the autotype_cost kernel, csrc/hist_cost.cu).
 
 The JAX package compiles the whole search into one program
 (while_loop / cond).  Here the accept/mark-done loop and FindMinimum's
-narrowing run on the host: each round uploads its probe pairs, queues one
-batched cost evaluation (the segment's own cost folded into its first
-batch) and pulls the few costs the next round needs -- one host sync per
-round.  The control reads only those integer costs, so the split points
-equal the JAX program's.
+narrowing run on the host: each round (probe_round) uploads its probe
+pairs, launches one batched cost evaluation (the segment's own cost
+folded into its first batch) and pulls the few costs the next round
+needs -- one host sync per round.  The control reads only those integer
+costs, so the split points equal the JAX program's.
 
 Semantics notes (bit-exact to the reference):
   - auto-type cost = min(uncompressed, fixed, dynamic); the fixed cost
@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from .. import spec
-from . import costmodel
+from . import costmodel, scan_kernel
 from .fused_engine import dist_symbol
 
 CKPT = 256           # symbols per cumulative-histogram checkpoint
@@ -159,12 +159,56 @@ def autotype_costs(ll_ck, d_ck, ll_sym, d_sym, bcum, starts, ends,
     """Exact auto-type bits of blocks [starts[i], ends[i]), batched.
 
     Tensors as built by split_lz77_device(return_ck=True) +
-    stream_symbols; starts/ends (B,) symbol indices; small_store is the
-    GetFixedCost gate (deflate.c:612-615) -- a bool for the whole-store
-    rule or a (B,) bool tensor on the costs' device for the
-    per-block-store rule.
-    Returns (B,) int64 (0-length blocks cost BIG).
+    stream_symbols; starts/ends (B,) symbol indices in [0, ncap];
+    small_store is the GetFixedCost gate (deflate.c:612-615) -- a bool
+    for the whole-store rule (what the split uses) or a (B,) bool tensor
+    for the per-block-store rule.
+    Returns (B,) int64 (0-length blocks cost BIG).  CPU tensors take the
+    plain version; CUDA tensors launch the autotype_cost kernel
+    (csrc/hist_cost.cu), one launch for the whole batch, or raise.
     """
+    if scan_kernel.device_kind(ll_ck) == "cpu":
+        return autotype_costs_plain(ll_ck, d_ck, ll_sym, d_sym, bcum,
+                                    starts, ends, ncap, small_store)
+    dev = ll_ck.device
+    B = starts.shape[0]
+    if B == 0:
+        return torch.zeros(0, dtype=torch.int64, device=dev)
+    nck = ncap // CKPT + 1
+    for t, shape, what in ((ll_ck, (nck, spec.NUM_LL), "ll_ck"),
+                           (d_ck, (nck, spec.NUM_D), "d_ck"),
+                           (ll_sym, (ncap,), "ll_sym"),
+                           (d_sym, (ncap,), "d_sym"),
+                           (bcum, (ncap + 1,), "bcum"),
+                           (starts, (B,), "starts"), (ends, (B,), "ends")):
+        scan_kernel.check(t, torch.int64, shape, what)
+        if t.device != dev:
+            raise ValueError("autotype_costs: inputs on different devices")
+    gate_ptr, small = None, 0
+    if isinstance(small_store, torch.Tensor):
+        scan_kernel.check(small_store, torch.bool, (B,), "small_store")
+        if small_store.device != dev:
+            raise ValueError("autotype_costs: inputs on different devices")
+        gate_ptr = small_store.data_ptr()
+    else:
+        small = int(bool(small_store))
+    lib = scan_kernel.build_kernels()["hist_cost"]
+    out = torch.empty(B, dtype=torch.int64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scan_kernel.raise_on(lib.zt_autotype_cost(
+        ll_ck.data_ptr(), d_ck.data_ptr(), ll_sym.data_ptr(),
+        d_sym.data_ptr(), bcum.data_ptr(), starts.data_ptr(),
+        ends.data_ptr(), gate_ptr, out.data_ptr(), B, ncap, small, stream),
+        "autotype_cost")
+    scan_kernel.LAUNCHES["autotype_cost"] += 1
+    return out
+
+
+def autotype_costs_plain(ll_ck, d_ck, ll_sym, d_sym, bcum, starts, ends,
+                         ncap: int, small_store):
+    """Plain version of the autotype_cost kernel (autotype_costs'
+    contract): range histograms by prefix_hist_at, then the stored, fixed
+    and dynamic costs (the plain cost stack) and their minimum."""
     starts = starts.long()
     ends = ends.long()
     pll, pd = prefix_hist_at(ll_ck, d_ck, ll_sym, d_sym,
@@ -176,7 +220,7 @@ def autotype_costs(ll_ck, d_ck, ll_sym, d_sym, bcum, starts, ends,
               - bcum[torch.clamp(starts, max=ncap)])
     nblk = length // 65535 + (length % 65535 != 0).long()
     unc = nblk * 40 + length * 8
-    dyn = 3 + costmodel.hist_dynamic_cost(ll_h, d_h)
+    dyn = 3 + costmodel.hist_dynamic_cost_plain(ll_h, d_h)
     ll_h1 = ll_h.clone()
     ll_h1[:, 256] = 1
     fx = fixed_cost(ll_h1, d_h)
@@ -186,6 +230,20 @@ def autotype_costs(ll_ck, d_ck, ll_sym, d_sym, bcum, starts, ends,
         fixed = fx if small_store else unc
     cost = torch.minimum(torch.minimum(unc, fixed), dyn)
     return torch.where(ends > starts, cost, BIG)
+
+
+def probe_round(tabs, a: np.ndarray, b: np.ndarray, ncap: int,
+                small_store) -> np.ndarray:
+    """Auto-type costs of blocks [a[i], b[i]): one probe round of the
+    split -- one pinned upload of the pairs, one cost launch (on the
+    card) and one pull.  tabs = (ll_ck, d_ck, ll_sym, d_sym, bcum)."""
+    ll_ck, d_ck, ll_sym, d_sym, bcum = tabs
+    ab = upload(np.stack([a, b]).astype(np.int64), ll_ck.device)
+    c = autotype_costs(ll_ck, d_ck, ll_sym, d_sym, bcum, ab[0], ab[1], ncap,
+                       small_store)
+    STATS["rounds"] += 1
+    STATS["syncs"] += 1
+    return c.cpu().numpy()
 
 
 def split_lz77_device(litlens: torch.Tensor, dists: torch.Tensor,
@@ -203,19 +261,13 @@ def split_lz77_device(litlens: torch.Tensor, dists: torch.Tensor,
     does).
     """
     nsym = int(nsym)
-    dev = litlens.device
     ll_sym, d_sym, nbytes = stream_symbols(litlens, dists, ncap, nsym)
     ll_ck, d_ck, bcum = checkpoints(ll_sym, d_sym, nbytes, ncap, nsym)
     STATS["searches"] += 1
+    tabs = (ll_ck, d_ck, ll_sym, d_sym, bcum)
 
     def costs(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-        """Auto-type costs of blocks [a[i], b[i]): one round."""
-        ab = upload(np.stack([a, b]).astype(np.int64), dev)
-        c = autotype_costs(ll_ck, d_ck, ll_sym, d_sym, bcum, ab[0], ab[1],
-                           ncap, nsym <= 1000)
-        STATS["rounds"] += 1
-        STATS["syncs"] += 1
-        return c.cpu().numpy()
+        return probe_round(tabs, a, b, ncap, nsym <= 1000)
 
     def split_pairs(lstart, pts, lend):
         """(a, b) of the two halves at each point, then [lstart, lend)."""

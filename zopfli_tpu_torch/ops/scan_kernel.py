@@ -45,8 +45,9 @@ HBINS = 320      # 288 litlen rows + 32 dist rows
 MAX_KBP = 16     # breakpoints per position the CUDA scan supports
 
 # Kernel launches, counted by the wrappers where they launch a kernel
-# (hist_cost's wrapper is costmodel.hist_dynamic_cost).
-LAUNCHES = {"scan": 0, "traceback": 0, "hist_cost": 0}
+# (hist_cost's wrapper is costmodel.hist_dynamic_cost, autotype_cost's
+# devsplit.autotype_costs; both kernels are in csrc/hist_cost.cu).
+LAUNCHES = {"scan": 0, "traceback": 0, "hist_cost": 0, "autotype_cost": 0}
 
 # What each kernel replaces, for reports.
 REPLACES = {
@@ -54,6 +55,8 @@ REPLACES = {
     "traceback": "zopfli_tpu/ops/scan_kernel.py:289",
     "hist_cost": "no TPU counterpart: XLA ops at "
                  "zopfli_tpu/ops/costmodel.py:354",
+    "autotype_cost": "no TPU counterpart: XLA ops at "
+                     "zopfli_tpu/ops/devsplit.py:104",
 }
 
 
@@ -258,6 +261,7 @@ def _nvcc() -> str:
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
     vp, ci, sz = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    i64 = ctypes.c_longlong
     if name == "scan":
         lib.zt_scan.restype = ci
         lib.zt_scan.argtypes = [vp] * 7 + [ci] * 4 + [vp]
@@ -268,6 +272,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.zt_hist_cost.argtypes = [vp] * 3 + [ci, vp]
         lib.zt_hist_cost_smem_bytes.restype = sz
         lib.zt_hist_cost_smem_bytes.argtypes = []
+        lib.zt_autotype_cost.restype = ci
+        lib.zt_autotype_cost.argtypes = [vp] * 9 + [ci, i64, ci, vp]
     else:
         lib.zt_traceback.restype = ci
         lib.zt_traceback.argtypes = [vp] * 7 + [ci] * 4 + [vp]
