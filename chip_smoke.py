@@ -22,8 +22,9 @@ Phases, each printed as one JSON line:
          fixed-cost gate (the whole store's, true and false, and one
          per range); one probe round under torch.profiler must be
          one kernel and two copies;
-       - where a K3 row's cycles go, phase by phase, in the first design
-         and in this one (experiments/exp_hist_cost_phases.py);
+       - where a K3 row's cycles go, phase by phase, in the kernel the
+         port runs (experiments/exp_hist_cost_phases.py, which measures
+         the first design with `--variants first`);
        - then the CASES shapes on seeded random inputs (ties, unsorted
          breakpoints, odd tiles and lane counts, cut paths).
      Outputs must be bit-equal, and one warm scan + traceback pair must
@@ -44,7 +45,28 @@ Phases, each printed as one JSON line:
      share.  It fails only if the profiler fails or sees no device time.
   5. many: compress_many on the corpus files as separate inputs and on
      two identical adjacent inputs; each output must round-trip alone.
-Then a `kernels` JSON line, and last {"ok": true, "device": {...}}.
+  6. png: zopfli_tpu_torch.png.optimize_many at the defaults on 44
+     web-asset-like PNGs made without PIL (png_corpus.py's 14 classes at
+     its 3 sizes, a 1024x768 photo, a 512x512 RGBA image with alpha
+     bands; 4.8 MB of raw scanlines), its IDAT jobs in two compress_many
+     calls (42 at 15 iterations, 2 large images at 5), twice on the
+     device engine and once on the native one (which compresses the
+     jobs one after another; its slowest jobs are printed): every
+     output must decode to its input's pixels, K1 == K2 > 0 launches,
+     hist_cost > 0, autotype_cost == split rounds > 0, no verify
+     fallback, no host greedy parse, and the batch's bytes within 2% of
+     the native engine's.  The fused loop's K1 inputs at the most lane
+     groups of the batch are kept from the first run, and K1 and K2 are
+     held bit-equal to their plain versions on them and timed.
+  7. cli: `zopfli_tpu_torch.cli.main(["--i15", file])` in process on
+     phase 3's input (bytes equal to phase 3's compress, launches as in
+     phase 3), `python3 -m zopfli_tpu_torch.cli -c --i15 file` in a fresh
+     process (stdout equal to the same bytes), and
+     `zopfli_tpu_torch.png.cli.main(["--prefix=zopfli_", "-y", ...])` on
+     six of phase 6's images (pixels equal, K1 launched).
+Then a `kernels` JSON line (with phase 3's launches, phase 6's in
+`launches_png`, and for K1 and K2 phase 6's check at its shape in
+`png_shape`), and last {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, if any phase fails or no GPU is
 present.  Imports nothing of JAX.
 """
@@ -89,6 +111,98 @@ def corpus_1mib() -> bytes:
     if not blob:
         raise RuntimeError("no repo text found beside chip_smoke.py")
     return (blob * (MIB // len(blob) + 1))[:MIB]
+
+
+PNG_SIZES = ((48, 48), (96, 128), (200, 150))
+
+
+def _smooth(rng, h, w, ch):
+    """Photo-like: random walk smoothed (png_corpus.py's generator)."""
+    import numpy as np
+
+    a = rng.standard_normal((h, w, ch))
+    for _ in range(3):
+        a = (a + np.roll(a, 1, 0) + np.roll(a, 1, 1)
+             + np.roll(a, -1, 0) + np.roll(a, -1, 1)) / 5.0
+    a = np.cumsum(a, axis=1)
+    a -= a.min()
+    a *= 255.0 / max(a.max(), 1e-9)
+    return a.astype(np.uint8)
+
+
+def png_inputs() -> list[tuple[str, bytes]]:
+    """Web-asset-like PNGs, made without PIL: png_corpus.py's 14 classes
+    at its three sizes from its seed, then a 1024x768 photo-like RGB
+    image and a 512x512 RGBA image with a transparent and a partial-alpha
+    band.  Each is encoded by the port's codec with minsum filters and
+    zlib level 6; palette and sub-byte classes set their header fields."""
+    import numpy as np
+
+    from zopfli_tpu_torch.png import codec, filters
+
+    out = []
+
+    def enc(name, scan, h, w, bd, ct, palette=None):
+        scan = np.ascontiguousarray(scan.reshape(h, -1), dtype=np.uint8)
+        cand = filters.filter_all_types(scan, codec._bpp_bytes(ct, bd))
+        spec = codec.EncodeSpec(scan, w, h, bd, ct, palette)
+        out.append((name, codec.encode(
+            spec, filters.strategy_minsum(cand),
+            deflater=lambda b: zlib.compress(b, 6))))
+
+    def packed(values, bd):
+        bits = np.unpackbits(values.astype(np.uint8)[..., None],
+                             axis=-1)[..., 8 - bd:]
+        return np.packbits(bits.reshape(values.shape[0], -1), axis=1)
+
+    rng = np.random.default_rng(20260817)
+    for i, (h, w) in enumerate(PNG_SIZES):
+        flat = np.full((h, w, 3), [30 + 40 * i, 90, 200 - 50 * i], np.uint8)
+        enc(f"flat_{i}", flat, h, w, 8, 2)
+        gx = np.linspace(0, 255, w, dtype=np.uint8)
+        grad = np.stack([np.tile(gx, (h, 1))] * 3, axis=2)
+        grad[:, :, 1] = grad[:, :, 1][::-1]
+        enc(f"gradient_{i}", grad, h, w, 8, 2)
+        pal = rng.integers(0, 256, (8, 3), np.uint8)
+        enc(f"palette8_{i}", pal[rng.integers(0, 8, (h, w))], h, w, 8, 2)
+        enc(f"gray_{i}", _smooth(rng, h, w, 1), h, w, 8, 0)
+        enc(f"photo_{i}", _smooth(rng, h, w, 3), h, w, 8, 2)
+        enc(f"noise_{i}", rng.integers(0, 256, (h, w, 3), np.uint8), h, w,
+            8, 2)
+        rgba = _smooth(rng, h, w, 4)
+        rgba[:, :, 3] = 255
+        rgba[: h // 3, :, 3] = 0          # transparent band w/ junk RGB
+        rgba[h // 3: h // 2, :, 3] = 128  # partial alpha
+        enc(f"alpha_{i}", rgba, h, w, 8, 6)
+        binalpha = rgba.copy()
+        binalpha[:, :, 3] = np.where(rgba[:, :, 3] > 100, 255, 0)
+        enc(f"binalpha_{i}", binalpha, h, w, 8, 6)
+        checker = ((np.add.outer(np.arange(h), np.arange(w)) // 4) % 2)
+        enc(f"checker_{i}", checker * 255, h, w, 8, 0)
+        text = np.zeros((h, w), np.uint8)
+        for _ in range(h * w // 128):
+            y, x = rng.integers(0, h - 4), rng.integers(0, w - 4)
+            text[y:y + rng.integers(1, 4), x:x + rng.integers(1, 4)] = 255
+        enc(f"textish_{i}", text, h, w, 8, 0)
+        gray16 = _smooth(rng, h, w, 1)[:, :, 0].astype(np.uint16) * 257
+        enc(f"gray16_{i}", gray16.astype(">u2").view(np.uint8), h, w, 16, 0)
+        bit1 = (checker ^ (rng.random((h, w)) < 0.02)).astype(np.uint8)
+        enc(f"bit1_{i}", packed(bit1, 1), h, w, 1, 0)
+        few = rng.integers(0, 4, (h, w))
+        pal4 = np.array([[0, 0, 0], [255, 0, 0], [0, 255, 0], [40, 40, 255]],
+                        np.uint8)
+        enc(f"pal4_{i}", packed(few, 2), h, w, 2, 3, palette=pal4)
+        stripes = np.zeros((h, w, 3), np.uint8)
+        stripes[::3] = [200, 0, 0]
+        stripes[1::3] = [0, 200, 0]
+        enc(f"stripes_{i}", stripes, h, w, 8, 2)
+    enc("photo_1024x768", _smooth(rng, 768, 1024, 3), 768, 1024, 8, 2)
+    big = _smooth(rng, 512, 512, 4)
+    big[:, :, 3] = 255
+    big[:128, :, 3] = 0
+    big[128:192, :, 3] = 128
+    enc("alpha_512x512", big, 512, 512, 8, 6)
+    return out
 
 
 def cuda_time_ms(fn, reps: int, warm: int = 1) -> float:
@@ -157,9 +271,77 @@ def graph_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _scan_bound(inputs, ce, cost, G) -> tuple[float, str]:
+    """Least time of a scan: every input read once and both outputs
+    written once; its operations are 2 f32 adds + 1 compare per
+    relaxation that lands inside the tile, and 2 per literal."""
+    import numpy as np
+
+    from zopfli_tpu_torch.ops import scan_kernel as sk
+
+    rows, _, nt = inputs[0].shape
+    tile = rows // G
+    nbytes = (sum(t.numel() * t.element_size() for t in inputs)
+              + ce.numel() * 4 + cost.numel() * 4)
+    relax = int(np.clip(tile - np.arange(tile) - 2, 0, sk.W).sum())
+    return bytes_bound(nbytes, G * nt * (3 * relax + 2 * tile))
+
+
+def _traceback_bound(hist, pe, G, symtab) -> tuple[float, str]:
+    """Least time of a traceback: the path rows it must read (ce, and lit
+    at literals), tile_nbytes and the symbol tables, and both outputs
+    written once."""
+    from zopfli_tpu_torch.ops import scan_kernel as sk
+
+    npath = int((pe != 0).sum())
+    nlit = int(((pe & sk.LEN_MASK) == 1).sum())
+    nbytes = (4 * npath + 4 * nlit + 4 * G * pe.shape[1] + symtab.nbytes
+              + hist.numel() * 4 + pe.numel() * 4)
+    return bytes_bound(nbytes, 4 * npath)
+
+
+def _hold_k1k2(inputs, lit, nbytes, symtab, G, plain_reps):
+    """K1 on `inputs` and K2 on K1's output against their plain versions:
+    bit-equality, largest differences, CUDA-event times of warm launches
+    (the plain versions over `plain_reps` calls), and bounds.  Returns
+    (report, K2's pe)."""
+    import torch
+
+    from zopfli_tpu_torch.ops import scan_kernel as sk
+
+    ce_k, cost_k = sk.scan(*inputs, groups=G)
+    ce_p, cost_p = sk.scan_plain(*inputs, groups=G)
+    hist_k, pe_k = sk.traceback(ce_k, lit, nbytes, symtab, groups=G)
+    hist_p, pe_p = sk.traceback_plain(ce_k, lit, nbytes, symtab, groups=G)
+    torch.cuda.synchronize()
+    r = {"bit_equal": {
+        "ce": torch.equal(ce_k, ce_p),
+        "cost": torch.equal(cost_k.view(torch.int32),
+                            cost_p.view(torch.int32)),
+        "hist": torch.equal(hist_k, hist_p),
+        "pe": torch.equal(pe_k, pe_p)},
+        "scan_err": max(
+            float((cost_k.double() - cost_p.double()).abs().max()),
+            float((ce_k.long() - ce_p.long()).abs().max())),
+        "traceback_err": max(float((hist_k - hist_p).abs().max()),
+                             float((pe_k.long() - pe_p.long()).abs().max()))}
+    del ce_p, cost_p, hist_p, pe_p
+    r["scan_ms"] = cuda_time_ms(lambda: sk.scan(*inputs, groups=G), reps=10)
+    r["traceback_ms"] = cuda_time_ms(lambda: sk.traceback(
+        ce_k, lit, nbytes, symtab, groups=G), reps=20)
+    r["scan_plain_ms"] = cuda_time_ms(
+        lambda: sk.scan_plain(*inputs, groups=G), reps=plain_reps, warm=0)
+    r["traceback_plain_ms"] = cuda_time_ms(lambda: sk.traceback_plain(
+        ce_k, lit, nbytes, symtab, groups=G), reps=plain_reps, warm=0)
+    r["scan_bound_ms"], r["scan_bound_by"] = _scan_bound(inputs, ce_k,
+                                                         cost_k, G)
+    r["traceback_bound_ms"], r["traceback_bound_by"] = _traceback_bound(
+        hist_k, pe_k, G, symtab)
+    return r, pe_k
+
+
 def phase_kernels(data, dev="cuda"):
     """Each kernel against its plain version at production shapes."""
-    import numpy as np
     import torch
 
     from zopfli_tpu_torch import native
@@ -181,52 +363,12 @@ def phase_kernels(data, dev="cuda"):
     tile = rows // G
     symtab = fs.symtab
 
-    ce_k, cost_k = sk.scan(*inputs, groups=G)
-    ce_p, cost_p = sk.scan_plain(*inputs, groups=G)
-    hist_k, pe_k = sk.traceback(ce_k, fs.lit_t, fs.tile_nbytes_d, symtab,
-                                groups=G)
-    hist_p, pe_p = sk.traceback_plain(ce_k, fs.lit_t, fs.tile_nbytes_d,
-                                      symtab, groups=G)
-    torch.cuda.synchronize()
-    checks = {
-        "ce": torch.equal(ce_k, ce_p),
-        "cost": torch.equal(cost_k.view(torch.int32),
-                            cost_p.view(torch.int32)),
-        "hist": torch.equal(hist_k, hist_p),
-        "pe": torch.equal(pe_k, pe_p),
-    }
-    scan_err = max(float((cost_k.double() - cost_p.double()).abs().max()),
-                   float((ce_k.long() - ce_p.long()).abs().max()))
-    tb_err = max(float((hist_k - hist_p).abs().max()),
-                 float((pe_k.long() - pe_p.long()).abs().max()))
-
-    scan_ms = cuda_time_ms(lambda: sk.scan(*inputs, groups=G), reps=10)
-    tb_ms = cuda_time_ms(lambda: sk.traceback(
-        ce_k, fs.lit_t, fs.tile_nbytes_d, symtab, groups=G), reps=20)
-    scan_plain_ms = cuda_time_ms(lambda: sk.scan_plain(*inputs, groups=G),
-                                 reps=2, warm=0)
-    tb_plain_ms = cuda_time_ms(lambda: sk.traceback_plain(
-        ce_k, fs.lit_t, fs.tile_nbytes_d, symtab, groups=G), reps=2, warm=0)
-
-    # Least time for the same work.  Scan: every input read once and both
-    # outputs written once; its operations are 2 f32 adds + 1 compare per
-    # relaxation that lands inside the tile, and 2 per literal.
-    in_bytes = sum(t.numel() * t.element_size() for t in inputs)
-    scan_bytes = in_bytes + ce_k.numel() * 4 + cost_k.numel() * 4
-    steps = np.arange(tile)
-    relax = int(np.clip(tile - steps - 2, 0, sk.W).sum())
-    scan_ops = G * nt * (3 * relax + 2 * tile)
-    scan_bound, scan_by = bytes_bound(scan_bytes, scan_ops)
-    # Traceback: the path rows it must read (ce, and lit at literals),
-    # tile_nbytes and the symbol tables, and both outputs written once.
+    k12, pe_k = _hold_k1k2(inputs, fs.lit_t, fs.tile_nbytes_d, symtab, G,
+                           plain_reps=2)
+    checks = dict(k12["bit_equal"])
     path = pe_k != 0
-    nlit = int(((pe_k & sk.LEN_MASK) == 1).sum())
     npath = int(path.sum())
     npath_max = int(path.sum(dim=0).max())  # the longest walk of a lane
-    tb_bytes = (4 * npath + 4 * nlit + 4 * G * nt + symtab.nbytes
-                + hist_k.numel() * 4 + pe_k.numel() * 4)
-    tb_ops = 4 * npath
-    tb_bound, tb_by = bytes_bound(tb_bytes, tb_ops)
 
     # One warm scan + traceback pair, with symtab as FusedSqueeze holds
     # it, must not sync the stream.
@@ -252,25 +394,29 @@ def phase_kernels(data, dev="cuda"):
               "hist_cost": sk.build_kernels()[
                   "hist_cost"].zt_hist_cost_smem_bytes()},
           "path_rows": npath, "path_rows_max_lane": npath_max,
-          "scan_ms": scan_ms,
-          "scan_plain_ms": scan_plain_ms, "traceback_ms": tb_ms,
-          "traceback_plain_ms": tb_plain_ms, "seed": seed_report})
+          **{k: k12[k] for k in ("scan_ms", "scan_plain_ms", "traceback_ms",
+                                 "traceback_plain_ms")},
+          "seed": seed_report})
     if not ok:
         raise RuntimeError(f"kernel disagrees with its plain version: "
                            f"{checks}")
     return {
         "scan": {"name": "scan", "route": "cuda",
                  "source": "zopfli_tpu_torch/csrc/scan.cu",
-                 "replaces": sk.REPLACES["scan"], "max_abs_err": scan_err,
-                 "ms": scan_ms, "plain_ms": scan_plain_ms,
-                 "bound_ms": scan_bound, "bound_by": scan_by,
-                 "library_ms": None},
+                 "replaces": sk.REPLACES["scan"],
+                 "max_abs_err": k12["scan_err"], "ms": k12["scan_ms"],
+                 "plain_ms": k12["scan_plain_ms"],
+                 "bound_ms": k12["scan_bound_ms"],
+                 "bound_by": k12["scan_bound_by"], "library_ms": None},
         "traceback": {"name": "traceback", "route": "cuda",
                       "source": "zopfli_tpu_torch/csrc/traceback.cu",
                       "replaces": sk.REPLACES["traceback"],
-                      "max_abs_err": tb_err, "ms": tb_ms,
-                      "plain_ms": tb_plain_ms, "bound_ms": tb_bound,
-                      "bound_by": tb_by, "library_ms": None},
+                      "max_abs_err": k12["traceback_err"],
+                      "ms": k12["traceback_ms"],
+                      "plain_ms": k12["traceback_plain_ms"],
+                      "bound_ms": k12["traceback_bound_ms"],
+                      "bound_by": k12["traceback_bound_by"],
+                      "library_ms": None},
         **k3s,
     }
 
@@ -586,13 +732,14 @@ def _autotype_bound(devsplit, tabs, a, b, ncap) -> tuple[float, str]:
 
 
 def _phase_breakdowns(sets, sk, checks) -> dict:
-    """Where a K3 row's cycles go, in the first design and in this one
-    (experiments/exp_hist_cost_phases.py: debug builds that stamp
-    clock64() around each phase)."""
+    """Where a K3 row's cycles go in the kernel the port runs
+    (experiments/exp_hist_cost_phases.py: a debug build that stamps
+    clock64() around each phase; `--variants first` there measures the
+    first design)."""
     sys.path.insert(0, os.path.join(HERE, "experiments"))
     import exp_hist_cost_phases as ehp
 
-    res = ehp.breakdowns(sets, sk)
+    res = ehp.breakdowns(sets, sk, variants=("new",))
     out = {}
     for variant, per in res.items():
         for batch, r in per.items():
@@ -741,6 +888,41 @@ def _compress_run(raw: bytes, label: str, dev) -> tuple[dict, bytes]:
     import torch
 
     import zopfli_tpu_torch as zt
+
+    _reset_counters()
+    calls, restore = _counted_greedy()
+    try:
+        t0 = time.time()
+        out = zt.compress(raw, "gzip", zt.Options(numiterations=ITERATIONS,
+                                                  device=dev))
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+    finally:
+        restore()
+    run = {"run": label, "seconds": secs, "bytes": len(out),
+           "greedy_calls": calls[0], **_counters(),
+           "roundtrip": zlib.decompress(out, 31) == raw}
+    return run, out
+
+
+def _launches_ok(r, seeds) -> bool:
+    """K1/K2 once per iteration and per seed program, K3 `hist_cost` at
+    least once, `autotype_cost` once per probe round of the splits."""
+    ln = r["launches"]
+    return (ln["scan"] == ln["traceback"] == ITERATIONS + seeds
+            and ln["hist_cost"] > 0
+            and ln["autotype_cost"] == r["split"]["rounds"] > 0)
+
+
+def _default_path_ok(r) -> bool:
+    """One compress of one master on the default path: one seed program,
+    no host greedy parse, no verify fallback."""
+    return (r["verify_fails"] == 0 and r["greedy_calls"] == 0
+            and r["seed_programs"] == 1 and _launches_ok(r, 1))
+
+
+def _counted_greedy():
+    """Count host greedy parses: (calls, restore)."""
     from zopfli_tpu_torch import native
 
     greedy = native.greedy
@@ -750,20 +932,11 @@ def _compress_run(raw: bytes, label: str, dev) -> tuple[dict, bytes]:
         calls[0] += 1
         return greedy(*a, **k)
 
-    _reset_counters()
     native.greedy = counted
-    try:
-        t0 = time.time()
-        out = zt.compress(raw, "gzip", zt.Options(numiterations=ITERATIONS,
-                                                  device=dev))
-        torch.cuda.synchronize()
-        secs = time.time() - t0
-    finally:
+
+    def restore():
         native.greedy = greedy
-    run = {"run": label, "seconds": secs, "bytes": len(out),
-           "greedy_calls": calls[0], **_counters(),
-           "roundtrip": zlib.decompress(out, 31) == raw}
-    return run, out
+    return calls, restore
 
 
 def phase_main(data, dev="cuda"):
@@ -794,18 +967,9 @@ def phase_main(data, dev="cuda"):
     native_secs = time.time() - t0
     ratio = len(outs[0]) / len(native_out)
 
-    def launches_ok(r, seeds):
-        # One autotype_cost launch per probe round of the device splits.
-        ln = r["launches"]
-        return (ln["scan"] == ln["traceback"] == ITERATIONS + seeds
-                and ln["hist_cost"] > 0
-                and ln["autotype_cost"] == r["split"]["rounds"] > 0)
-
-    ok = (all(r["roundtrip"] and r["verify_fails"] == 0
-              and r["greedy_calls"] == 0 and r["seed_programs"] == 1
-              and launches_ok(r, r["seed_programs"]) for r in runs)
+    ok = (all(r["roundtrip"] and _default_path_ok(r) for r in runs)
           and greedy_run["roundtrip"] and greedy_run["verify_fails"] == 0
-          and launches_ok(greedy_run, 0)
+          and _launches_ok(greedy_run, 0)
           and outs[1] == outs[0] and ratio <= 1.02
           and len(greedy_out) / len(native_out) <= 1.02
           and zlib.decompress(native_out, 31) == raw)
@@ -822,7 +986,7 @@ def phase_main(data, dev="cuda"):
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     if not ok:
         raise RuntimeError("main path check failed")
-    return runs[1]["launches"]
+    return runs[1]["launches"], outs[0]
 
 
 def phase_many(dev="cuda") -> None:
@@ -857,6 +1021,226 @@ def phase_many(dev="cuda") -> None:
     emit({"phase": "many", "ok": ok, **results})
     if not ok:
         raise RuntimeError("compress_many check failed")
+
+
+FUSED_MODULE = "zopfli_tpu_torch.ops.fused_engine"
+
+
+def _capture_fused_k1k2():
+    """Keep the inputs of the fused loop's first K1 launch at the most
+    lane groups seen, and K2's lit, tile_nbytes and symtab from the
+    launch after it: (kept, restore).  Every launch runs and counts as
+    before; the seed program's are not kept."""
+    from zopfli_tpu_torch.ops import scan_kernel as sk
+
+    scan, tb = sk.scan, sk.traceback
+    kept = {"groups": 0}
+
+    def scan_kept(*args, groups=1):
+        if (groups > kept["groups"] and sys._getframe(1).f_globals.get(
+                "__name__") == FUSED_MODULE):
+            kept.update(groups=groups, scan=args, pending=True)
+        return scan(*args, groups=groups)
+
+    def traceback_kept(ce, *args, groups=1):
+        if kept.pop("pending", False):
+            kept["traceback"] = args
+        return tb(ce, *args, groups=groups)
+
+    sk.scan, sk.traceback = scan_kept, traceback_kept
+
+    def restore():
+        sk.scan, sk.traceback = scan, tb
+    return kept, restore
+
+
+def phase_png(inputs, dev="cuda") -> tuple[dict, dict]:
+    """optimize_many on the PNG batch at the defaults (auto filter
+    strategy, 15 iterations, 5 for IDATs of >= 200,000 B), twice on the
+    device engine and once on the native one: pixels, counts and the
+    batch's bytes against the native engine's; the seconds inside each
+    compress_many call (the rest is the PNG layer's host work), and the
+    native engine's per job, since it compresses the jobs one after
+    another.  K1 and K2 are then held against their plain versions on
+    the fused loop's inputs at the most lane groups of the first run.
+    Returns (the warm run's launches, that check)."""
+    import torch
+
+    from zopfli_tpu_torch.png import PNGOptions, codec
+    from zopfli_tpu_torch.png.optimize import optimize_many
+
+    import zopfli_tpu_torch as zt
+
+    pngs = [p for _, p in inputs]
+    want = [codec.decode(p)[0] for p in pngs]
+    compress_many, compress = zt.compress_many, zt.compress
+    calls, jobs = {}, []
+
+    def timed_many(blobs, fmt, options):
+        # optimize_many imports compress_many from the package at call time.
+        t0 = time.time()
+        try:
+            return compress_many(blobs, fmt, options)
+        finally:
+            calls[str(options.numiterations)] = {
+                "jobs": len(blobs), "bytes": sum(map(len, blobs)),
+                "seconds": time.time() - t0}
+
+    def timed_job(blob, *a, **k):
+        # The native engine's compress_many calls compress once a job.
+        t0 = time.time()
+        try:
+            return compress(blob, *a, **k)
+        finally:
+            jobs.append((len(blob), time.time() - t0))
+
+    runs, outs, batch = {}, {}, None
+    for label, opts in (("device_cold", PNGOptions(device=dev)),
+                        ("device_warm", PNGOptions(device=dev)),
+                        ("native", PNGOptions(engine="native"))):
+        if label == "device_warm":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        _reset_counters()
+        greedy_calls, restore = _counted_greedy()
+        kept, restore_k12 = _capture_fused_k1k2()
+        calls.clear()
+        jobs.clear()
+        zt.compress_many = timed_many
+        if label == "native":
+            zt.compress = timed_job
+        try:
+            t0 = time.time()
+            out = optimize_many(pngs, opts)
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+        finally:
+            restore()
+            restore_k12()
+            zt.compress_many, zt.compress = compress_many, compress
+        outs[label] = out
+        runs[label] = {"seconds": secs, "compress_many": dict(calls),
+                       "bytes": sum(map(len, out)),
+                       "greedy_calls": greedy_calls[0], **_counters(),
+                       "pixels_equal": all(
+                           (codec.decode(o)[0] == w).all()
+                           for o, w in zip(out, want))}
+        if label == "device_warm":
+            runs[label]["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        if label == "native":
+            top = sorted(jobs, key=lambda j: -j[1])[:6]
+            runs[label]["job_seconds_top"] = [
+                {"bytes": n, "seconds": t} for n, t in top]
+        if label == "device_cold" and kept["groups"]:
+            G = kept["groups"]
+            scan_in = kept["scan"]
+            rows, kbp, nt = scan_in[0].shape
+            k12, _ = _hold_k1k2(scan_in, *kept["traceback"], G, plain_reps=1)
+            batch = {"groups": G, "tile": rows // G, "lanes": nt, "kbp": kbp,
+                     **k12}
+        del kept
+    dev_runs = [runs["device_cold"], runs["device_warm"]]
+    ratio = runs["device_cold"]["bytes"] / runs["native"]["bytes"]
+    ok = (all(r["pixels_equal"] for r in runs.values())
+          and all(r["launches"]["scan"] == r["launches"]["traceback"] > 0
+                  and r["launches"]["hist_cost"] > 0
+                  and r["launches"]["autotype_cost"]
+                  == r["split"]["rounds"] > 0
+                  and r["verify_fails"] == 0 and r["greedy_calls"] == 0
+                  for r in dev_runs)
+          and outs["device_warm"] == outs["device_cold"]
+          and batch is not None and all(batch["bit_equal"].values())
+          and ratio <= 1.02)
+    emit({"phase": "png", "ok": ok, "images": len(pngs),
+          "input_png_bytes": sum(map(len, pngs)),
+          "rgba_bytes": sum(w.size for w in want), "runs": runs,
+          "size_vs_native": ratio, "fused_k1k2_at_most_groups": batch})
+    if not ok:
+        raise RuntimeError("PNG batch check failed")
+    return runs["device_warm"]["launches"], batch
+
+
+def phase_cli(raw: bytes, want_gz: bytes, inputs) -> None:
+    """Both command-line tools on the card: `zopfli --i15` in process and
+    as `python3 -m zopfli_tpu_torch.cli -c` in a fresh process (bytes
+    equal to compress()), then the PNG tool in process on six images."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    from zopfli_tpu_torch import cli
+    from zopfli_tpu_torch.png import cli as pcli
+    from zopfli_tpu_torch.png import codec
+
+    report = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "input.bin")
+        with open(path, "wb") as f:
+            f.write(raw)
+        _reset_counters()
+        calls, restore = _counted_greedy()
+        try:
+            t0 = time.time()
+            rc = cli.main([f"--i{ITERATIONS}", path])
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+        finally:
+            restore()
+        with open(path + ".gz", "rb") as f:
+            gz = f.read()
+        run = {"greedy_calls": calls[0], **_counters()}
+        report["zopfli_in_process"] = {
+            "rc": rc, "seconds": secs, "bytes": len(gz),
+            "equal_to_compress": gz == want_gz, **run,
+            "path_ok": _default_path_ok(run)}
+
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-m", "zopfli_tpu_torch.cli", "-c",
+             f"--i{ITERATIONS}", path], cwd=HERE, capture_output=True,
+            env=dict(os.environ, PYTHONPATH=HERE), timeout=600)
+        report["zopfli_subprocess"] = {
+            "rc": proc.returncode, "seconds": time.time() - t0,
+            "bytes": len(proc.stdout),
+            "equal_to_compress": proc.stdout == want_gz,
+            "stderr_tail": proc.stderr.decode(errors="replace")[-2000:]}
+
+        picked = {"photo_1", "alpha_1", "palette8_1", "gray16_1", "bit1_2",
+                  "textish_2"}
+        files = {}
+        for name, png in inputs:
+            if name in picked:
+                files[os.path.join(tmp, name + ".png")] = png
+                with open(os.path.join(tmp, name + ".png"), "wb") as f:
+                    f.write(png)
+        _reset_counters()
+        text = io.StringIO()
+        t0 = time.time()
+        with contextlib.redirect_stdout(text):
+            rc = pcli.main(["--prefix=zopfli_", "-y", *files])
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        equal = []
+        for p, png in files.items():
+            out = os.path.join(tmp, "zopfli_" + os.path.basename(p))
+            with open(out, "rb") as f:
+                equal.append(bool((codec.decode(f.read())[0]
+                                   == codec.decode(png)[0]).all()))
+        report["zopflipng_in_process"] = {
+            "rc": rc, "seconds": secs, "files": len(files),
+            "pixels_equal": equal, **_counters(),
+            "output": text.getvalue().splitlines()[-1:]}
+    z, s, p = (report["zopfli_in_process"], report["zopfli_subprocess"],
+               report["zopflipng_in_process"])
+    ok = (z["rc"] == 0 and z["equal_to_compress"] and z["path_ok"]
+          and s["rc"] == 0 and s["equal_to_compress"]
+          and p["rc"] == 0 and len(files) == len(picked)
+          and all(p["pixels_equal"]) and p["launches"]["scan"] > 0)
+    emit({"phase": "cli", "ok": ok, **report})
+    if not ok:
+        raise RuntimeError("CLI check failed")
 
 
 def phase_profile(data) -> None:
@@ -922,11 +1306,24 @@ def main(argv) -> int:
         kernels = phase_kernels(data)
         if only == "kernels":
             return 0
-        launches = phase_main(data)
+        launches, gz = phase_main(data)
         phase_profile(data)
         phase_many()
+        inputs = png_inputs()
+        png_launches, png_k12 = phase_png(inputs)
+        phase_cli(data.tobytes(), gz, inputs)
         for k, entry in kernels.items():
             entry["launches"] = launches[k]
+            entry["launches_png"] = png_launches[k]
+            if k in ("scan", "traceback"):
+                # Times at the PNG batch's fused-loop shape (phase png).
+                entry["png_shape"] = {
+                    "groups": png_k12["groups"],
+                    "max_abs_err": png_k12[f"{k}_err"],
+                    "ms": png_k12[f"{k}_ms"],
+                    "plain_ms": png_k12[f"{k}_plain_ms"],
+                    "bound_ms": png_k12[f"{k}_bound_ms"],
+                    "bound_by": png_k12[f"{k}_bound_by"]}
         emit({"kernels": list(kernels.values())})
     except Exception:
         traceback.print_exc()

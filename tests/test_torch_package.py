@@ -37,10 +37,12 @@ def _imported_modules(path):
 
 def test_port_sources_import_no_jax_or_reference():
     files = _port_sources()
-    assert len(files) >= 21
+    assert len(files) >= 28
     names = {os.path.relpath(f, ROOT) for f in files}
     assert {"zopfli_tpu_torch/ops/devsplit.py",
-            "zopfli_tpu_torch/ops/seed.py"} <= names
+            "zopfli_tpu_torch/ops/seed.py", "zopfli_tpu_torch/cli.py",
+            "zopfli_tpu_torch/png/cli.py",
+            "zopfli_tpu_torch/png/optimize.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -58,6 +60,23 @@ def test_import_and_compress_leave_jax_unloaded(tmp_path):
         "outs = zt.compress_many([data, data[:99]], 'zlib',"
         " zt.Options(device='cpu', numiterations=2))\n"
         "assert [zlib.decompress(o) for o in outs] == [data, data[:99]]\n"
+        "import numpy as np\n"
+        "from zopfli_tpu_torch import cli\n"
+        "from zopfli_tpu_torch.png import PNGOptions, codec, optimize\n"
+        "from zopfli_tpu_torch.png import cli as pcli\n"
+        "open('x.txt', 'wb').write(data)\n"
+        "assert cli.main(['--device=cpu', '--i2', 'x.txt']) == 0\n"
+        "assert zlib.decompress(open('x.txt.gz', 'rb').read(), 31) == data\n"
+        "img = np.zeros((8, 8, 3), np.uint8)\n"
+        "img[::2] = 200\n"
+        "png = codec.encode(codec.EncodeSpec(img.reshape(8, 24), 8, 8, 8,"
+        " 2), np.zeros(8, np.int64), deflater=lambda b: zlib.compress(b))\n"
+        "open('a.png', 'wb').write(png)\n"
+        "assert pcli.main(['--device=cpu', '--iterations=2', '-y', 'a.png',"
+        " 'b.png']) == 0\n"
+        "out = optimize(png, PNGOptions(device='cpu', num_iterations=2))\n"
+        "for p in (out, open('b.png', 'rb').read()):\n"
+        "    assert (codec.decode(p)[0] == codec.decode(png)[0]).all()\n"
         "mods = [m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'zopfli_tpu.')) or m == 'zopfli_tpu']\n"
         "print(json.dumps(mods))\n")
