@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                # every phase
     python3 chip_smoke.py --only kernels # build + kernel checks only
+    python3 chip_smoke.py --only oracle  # build + phase 8 only
+    python3 chip_smoke.py --only parallel  # build + phase 9 only
 
 Phases, each printed as one JSON line:
   1. environment: the card's name and power limit, the kernels' build.
@@ -64,9 +66,28 @@ Phases, each printed as one JSON line:
      process (stdout equal to the same bytes), and
      `zopfli_tpu_torch.png.cli.main(["--prefix=zopfli_", "-y", ...])` on
      six of phase 6's images (pixels equal, K1 launched).
+  8. oracle: the oracle block engine (ops.dp, ops.engine): dp_scan held
+     bit-equal to its plain version (a real 2 x 4096 batch, a seeded
+     random case, the 16 KiB bucket) and timed at phase 3's largest
+     block bucket, the plain version timed at 16 KiB; block_pipeline on
+     8 rows of 2^17 bytes (also sharded over two entries of this card);
+     deflate of phase 3's input through DeviceBlockEngine at
+     ORACLE_ITERATIONS (round trip, <= 1.02 x native, no verify
+     fallback); K2's large-tile entry bit-equal at a tile of 32,768 rows
+     (random paths at the loop's 256 lanes), and compress() at
+     ZT_TILE=32768 in a fresh process launching only that entry, which
+     is held bit-equal and timed there on the loop's own K2 inputs.
+  9. parallel: compress of 4 MiB of repo text (fused loop at
+     G=4; K1/K2 held bit-equal on its inputs and timed), the same with
+     the loop sharded over [cuda:0, cuda:0] (bytes equal),
+     compress_multihost in a world-size-1 gloo group (bytes equal to
+     compress), and two processes on this card in a gloo group (2.1 MB,
+     --i2; rank 0's bytes equal to the single-process ones).
 Then a `kernels` JSON line (with phase 3's launches, phase 6's in
-`launches_png`, and for K1 and K2 phase 6's check at its shape in
-`png_shape`), and last {"ok": true, "device": {...}}.
+`launches_png`, for K1 and K2 phase 6's check at its shape in
+`png_shape` and phase 9's at G=4 in `g4_shape`; dp_scan with the
+launches of phase 8's deflate, the large-tile traceback entry with those
+of its ZT_TILE=32768 run), and last {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, if any phase fails or no GPU is
 present.  Imports nothing of JAX.
 """
@@ -363,7 +384,8 @@ def phase_kernels(data, dev="cuda"):
     tile = rows // G
     symtab = fs.symtab
 
-    k12, pe_k = _hold_k1k2(inputs, fs.lit_t, fs.tile_nbytes_d, symtab, G,
+    sh = fs.shards[0]
+    k12, pe_k = _hold_k1k2(inputs, sh.lit_t, sh.tile_nbytes_d, symtab, G,
                            plain_reps=2)
     checks = dict(k12["bit_equal"])
     path = pe_k != 0
@@ -376,7 +398,7 @@ def phase_kernels(data, dev="cuda"):
     torch.cuda.set_sync_debug_mode("error")
     try:
         ce_s, _ = sk.scan(*inputs, groups=G)
-        sk.traceback(ce_s, fs.lit_t, fs.tile_nbytes_d, symtab, groups=G)
+        sk.traceback(ce_s, sh.lit_t, sh.tile_nbytes_d, symtab, groups=G)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     checks["no_sync"] = True
@@ -859,7 +881,7 @@ def _case_checks(dev) -> dict:
 
 def _reset_counters():
     from zopfli_tpu_torch import squeeze_batched
-    from zopfli_tpu_torch.ops import devsplit, fused_engine, seed
+    from zopfli_tpu_torch.ops import devsplit, engine, fused_engine, seed
     from zopfli_tpu_torch.ops import scan_kernel as sk
 
     for k in sk.LAUNCHES:
@@ -869,16 +891,18 @@ def _reset_counters():
     squeeze_batched.VERIFY_FAILS[0] = 0
     fused_engine.FETCH_RETRIES[0] = 0
     seed.PROGRAMS[0] = 0
+    engine.FALLBACKS[0] = 0
 
 
 def _counters() -> dict:
     from zopfli_tpu_torch import squeeze_batched
-    from zopfli_tpu_torch.ops import devsplit, fused_engine, seed
+    from zopfli_tpu_torch.ops import devsplit, engine, fused_engine, seed
     from zopfli_tpu_torch.ops import scan_kernel as sk
 
     return {"launches": dict(sk.LAUNCHES), "split": dict(devsplit.STATS),
             "seed_programs": seed.PROGRAMS[0],
             "verify_fails": squeeze_batched.VERIFY_FAILS[0],
+            "engine_fallbacks": engine.FALLBACKS[0],
             "fetch_retries": fused_engine.FETCH_RETRIES[0]}
 
 
@@ -1287,6 +1311,469 @@ def phase_profile(data) -> None:
           "top_device_ms": [{"ms": ms, "count": n, "name": name[:80]}
                             for ms, n, name in kernels[:12]]})
 
+ORACLE_ITERATIONS = 8   # the oracle engine's deflate of 1 MiB (~30 s)
+LARGE_TILE = 32768      # past the staged traceback entry's 17,611 rows
+PIPELINE_ROW = 1 << 17  # block_pipeline's row capacity (8 rows)
+
+
+def _dp_bound(bl, ins_bytes, out_bytes) -> tuple[float, str]:
+    """Least time of a dp_scan: every input read once, the three outputs
+    written once; 3 f32 operations per match relaxation (two adds and a
+    compare) and 2 per literal, at the rows' real positions."""
+    B, L, _ = bl.shape
+    return bytes_bound(ins_bytes + out_bytes, B * L * (3 * 256 + 2))
+
+
+def _dp_inputs(engine, data, s, e, dev, ll=None, dd=None):
+    """dp_scan's inputs for block [s, e) as the oracle engine builds
+    them, under the fixed model or the given costs."""
+    import numpy as np
+    import torch
+
+    from zopfli_tpu_torch.ops import dp
+
+    eng = engine.DeviceBlockEngine(data, s, e, device=dev)
+    eng._prepare()
+    if ll is None:
+        ll, dd = engine._FIXED_LL, engine._FIXED_D
+    lcost, dcost, lit = dp.edge_cost_tables(
+        torch.from_numpy(np.asarray(ll, np.float32)).to(dev)[None],
+        torch.from_numpy(np.asarray(dd, np.float32)).to(dev)[None],
+        eng._bp_dsym, eng._bp_dextra, eng._data_block)
+    return (eng._bp_len, eng._bp_dist, dcost.contiguous(), lit.contiguous(),
+            lcost.contiguous(), eng._mask)
+
+
+def _dp_hold(dp, ins) -> tuple[bool, float]:
+    """dp_scan against its plain version on the same inputs."""
+    import torch
+
+    k = dp.squeeze_scan(*ins)
+    p = dp.squeeze_scan_plain(*ins)
+    torch.cuda.synchronize()
+    eq = (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+          and torch.equal(k[2].view(torch.int32), p[2].view(torch.int32)))
+    err = max(float((k[0] - p[0]).abs().max()),
+              float((k[1] - p[1]).abs().max()),
+              float((k[2].double() - p[2].double()).abs().max()))
+    return eq, err
+
+
+def _large_tile_run(path: str) -> dict:
+    """compress() of the file at `path`, in a process started with
+    ZT_TILE=32768, where every traceback launch takes the large-tile
+    entry: the counts of that run, then K2 held against traceback_plain
+    on the fused loop's own inputs (K1's output on its first launch at
+    the most lane groups), timed there, with its bound."""
+    import torch
+
+    import zopfli_tpu_torch as zt
+    from zopfli_tpu_torch.ops import scan_kernel as sk
+
+    raw = open(path, "rb").read()
+    _reset_counters()
+    kept, restore = _capture_fused_k1k2()
+    try:
+        out = zt.compress(raw, "gzip", zt.Options(numiterations=ITERATIONS))
+    finally:
+        restore()
+    r = {**_counters(), "bytes": len(out),
+         "roundtrip": zlib.decompress(out, 31) == raw}
+    G = kept["groups"]
+    lit, nbytes, symtab = kept["traceback"]
+    ce, _ = sk.scan(*kept["scan"], groups=G)
+    del kept
+    before = sk.LAUNCHES["traceback_large"]
+    hist_k, pe_k = sk.traceback(ce, lit, nbytes, symtab, groups=G)
+    r["entry_taken"] = sk.LAUNCHES["traceback_large"] - before == 1
+    hist_p, pe_p = sk.traceback_plain(ce, lit, nbytes, symtab, groups=G)
+    r["bit_equal"] = torch.equal(hist_k, hist_p) and torch.equal(pe_k, pe_p)
+    r["max_abs_err"] = max(float((hist_k - hist_p).abs().max()),
+                           float((pe_k.long() - pe_p.long()).abs().max()))
+    del hist_p, pe_p
+    r["shape"] = {"groups": G, "tile": ce.shape[0] // G,
+                  "lanes": ce.shape[1]}
+    r["ms"] = cuda_time_ms(
+        lambda: sk.traceback(ce, lit, nbytes, symtab, groups=G), 10)
+    r["plain_ms"] = cuda_time_ms(lambda: sk.traceback_plain(
+        ce, lit, nbytes, symtab, groups=G), 1, warm=0)
+    r["bound_ms"], r["bound_by"] = _traceback_bound(hist_k, pe_k, G, symtab)
+    return r
+
+
+def _large_tile_subprocess(raw: bytes) -> dict:
+    """_large_tile_run in a fresh process at ZT_TILE=32768 (the tile is
+    fixed when the fused loop's module is imported)."""
+    import tempfile
+
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {HERE!r})\n"
+        "import chip_smoke\n"
+        "print(json.dumps(chip_smoke._large_tile_run(sys.argv[1])))\n")
+    with tempfile.NamedTemporaryFile(suffix=".bin") as f:
+        f.write(raw)
+        f.flush()
+        t0 = time.time()
+        proc = subprocess.run(
+            [sys.executable, "-c", code, f.name], cwd=HERE,
+            capture_output=True, text=True, timeout=300,
+            env=dict(os.environ, ZT_TILE=str(LARGE_TILE)))
+    if proc.returncode:
+        raise RuntimeError(f"ZT_TILE={LARGE_TILE} compress failed:\n"
+                           f"{proc.stderr[-3000:]}")
+    r = json.loads(proc.stdout.strip().splitlines()[-1])
+    r["seconds"] = time.time() - t0
+    return r
+
+
+def phase_oracle(data, dev="cuda") -> dict:
+    """The oracle block engine (ops.engine, ops.dp) and K2's large-tile
+    entry on the card: dp_scan against its plain version (a real 2 x 4096
+    batch under the fixed model, a seeded random case, the 16 KiB
+    bucket), its time on phase 3's largest block bucket and the plain
+    version's at 16 KiB; block_pipeline on 8 rows of 2^17 bytes (and
+    sharded over two entries of this card); deflate of the 1 MiB input
+    through DeviceBlockEngine (engine_factory of Options(engine="native"),
+    ORACLE_ITERATIONS iterations): round trip, <= 1.02 x the native
+    engine at the same iterations, no verify fallback, dp_scan launched;
+    K2's large-tile entry against traceback_plain at a tile of 32,768
+    rows and 256 lanes on random paths, and compress() at ZT_TILE=32768
+    in a fresh process, with the entry held and timed there on that
+    run's own K2 inputs."""
+    import functools
+    import importlib
+
+    import numpy as np
+    import torch
+
+    import zopfli_tpu_torch as zt
+    from zopfli_tpu_torch import native
+    from zopfli_tpu_torch.deflate import Options, split_master
+    from zopfli_tpu_torch.emit import BitStream
+    from zopfli_tpu_torch.ops import dp, engine, fused_engine
+    from zopfli_tpu_torch.ops import scan_kernel as sk
+    from zopfli_tpu_torch.parallel import dist
+
+    tdeflate = importlib.import_module("zopfli_tpu_torch.deflate")
+    dev = torch.device(dev)
+    checks, report = {}, {}
+
+    # dp_scan: a real batch of two 4096-byte rows, and a random case.
+    n = len(data)
+    rows = []
+    for s in (0, 300_000):
+        ins = _dp_inputs(engine, data, s, s + 4096, dev)
+        rows.append([t[:, :4096].contiguous() for t in ins[:4]]
+                    + [ins[4], ins[5][:, :4096].contiguous()])
+    batch = [torch.cat([r[i] for r in rows]) for i in range(6)]
+    checks["dp_real_b2_l4096"], err_a = _dp_hold(dp, batch)
+    rng = np.random.default_rng(31)
+    B, L, K = 3, 3000, 12
+    bl = rng.integers(0, 300, (B, L, K))
+    bl = np.where(rng.random(bl.shape) < 0.3, 0, bl)
+    bl = np.where(rng.random(bl.shape) < 0.2, bl[:, :, :1], bl)
+    rnd = [bl.astype(np.int32),
+           rng.integers(1, 32769, (B, L, K)).astype(np.int32),
+           rng.uniform(1, 20, (B, L, K)).astype(np.float32),
+           rng.uniform(1, 12, (B, L)).astype(np.float32),
+           rng.uniform(1, 10, (B, 256)).astype(np.float32),
+           np.arange(L)[None, :] < np.array([L, 2000, 0])[:, None]]
+    checks["dp_random"], err_b = _dp_hold(
+        dp, [torch.from_numpy(a).to(dev) for a in rnd])
+
+    # The 16 KiB bucket: bit-equality and the plain version's time.
+    bounds = split_master(Options(engine="native"), data, 0, n,
+                          native.greedy)
+    ins16 = _dp_inputs(engine, data, 0, 16384, dev)
+    checks["dp_bucket16k"], err_c = _dp_hold(dp, ins16)
+    report["dp_ms_16k"] = cuda_time_ms(lambda: dp.squeeze_scan(*ins16), 5)
+    report["dp_plain_ms_16k"] = cuda_time_ms(
+        lambda: dp.squeeze_scan_plain(*ins16), 1, warm=0)
+    # Phase 3's largest block, in its bucket.
+    sizes = np.diff(bounds)
+    b = int(np.argmax(sizes))
+    insb = _dp_inputs(engine, data, int(bounds[b]), int(bounds[b + 1]), dev)
+    outb = dp.squeeze_scan(*insb)
+    report["largest_block"] = {"bytes": int(sizes[b]),
+                               "bucket": int(insb[0].shape[1])}
+    report["dp_ms_largest"] = cuda_time_ms(lambda: dp.squeeze_scan(*insb),
+                                           3)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    report["dp_bound_ms_largest"], report["dp_bound_by_largest"] = \
+        _dp_bound(insb[0], nbytes(insb), nbytes(outb))
+    report["dp_bound_ms_16k"], report["dp_bound_by_16k"] = _dp_bound(
+        ins16[0], nbytes(ins16), nbytes(dp.squeeze_scan(*ins16)))
+
+    # block_pipeline: 8 rows of 2^17 bytes, and the same rows sharded
+    # over two entries of this card.
+    cap = PIPELINE_ROW
+    ranges = [(i * cap, (i + 1) * cap) for i in range(8)]
+    bufs, min_pos, inend = dist.pack_blocks(data, ranges, cap)
+    ll = np.full((8, 288), 8.0, np.float32)
+    dd = np.full((8, 32), 5.0, np.float32)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    cl, cd, cost = dist.block_pipeline(bufs, cap, min_pos, inend, ll, dd,
+                                       device=dev)
+    torch.cuda.synchronize()
+    report["block_pipeline_seconds"] = time.time() - t0
+    scl, scd, scost, total = dist.sharded_pipeline([dev, dev], cap)(
+        bufs, min_pos, inend, ll, dd)
+    checks["block_pipeline_sharded_equal"] = (
+        torch.equal(cl, scl) and torch.equal(cd, scd)
+        and torch.equal(cost.view(torch.int32), scost.view(torch.int32)))
+    covered = True
+    for i, (s, e) in enumerate(ranges):
+        lit, dst = dp.traceback(cl[i].cpu().numpy(), cd[i].cpu().numpy(),
+                                e - s, data[s:e])
+        eng = engine.DeviceBlockEngine(data, s, e, device=dev)
+        covered = (covered and eng._verify(lit, dst, data[s:e])
+                   and int(np.where(dst == 0, 1, lit).sum()) == e - s)
+    checks["block_pipeline_parses"] = covered and bool(
+        torch.isfinite(cost).all()) and float(total) > 0
+    report["block_pipeline_cost_total"] = float(total)
+
+    # deflate through the oracle engine: the dp_scan path.
+    raw = data.tobytes()
+    _reset_counters()
+    out = BitStream()
+    t0 = time.time()
+    tdeflate.deflate(Options(engine="native",
+                             numiterations=ORACLE_ITERATIONS), 2, True,
+                     data, out, engine_factory=functools.partial(
+                         engine.DeviceBlockEngine, device=dev),
+                     greedy_fn=engine.device_greedy)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    oracle_counts = _counters()
+    payload = out.getvalue()
+    t0 = time.time()
+    native_payload = zt.compress(raw, "deflate", zt.Options(
+        engine="native", numiterations=ORACLE_ITERATIONS))
+    report["oracle_deflate"] = {
+        "iterations": ORACLE_ITERATIONS, "seconds": secs,
+        "bytes": len(payload), "native_bytes": len(native_payload),
+        "native_seconds": time.time() - t0,
+        "size_vs_native": len(payload) / len(native_payload),
+        "roundtrip": zlib.decompress(payload, -15) == raw, **oracle_counts}
+    od = report["oracle_deflate"]
+    checks["oracle_deflate"] = (
+        od["roundtrip"] and od["size_vs_native"] <= 1.02
+        and od["engine_fallbacks"] == 0
+        and od["launches"]["dp_scan"] > 0)
+
+    # K2's large-tile entry at a tile of 32,768 rows and the fused loop's
+    # lane count: random valid paths, then the same cut (rows of length 0
+    # and 2 on a path).
+    T, Ln = LARGE_TILE, fused_engine.LANES
+    pos = np.arange(1, T + 1)[:, None]
+    ln = rng.integers(3, 259, (T, Ln))
+    ce = np.where((rng.random((T, Ln)) < 0.6) | (ln > pos), 1,
+                  ln | (rng.integers(1, 32769, (T, Ln)) << 9))
+    ce_t = torch.from_numpy(ce.astype(np.int32)).to(dev)
+    lit_t = torch.from_numpy(rng.integers(0, 256, (T, Ln)).astype(
+        np.int32)).to(dev)
+    before = sk.LAUNCHES["traceback_large"]
+    checks["traceback_large_tile32768"] = _traceback_cases(
+        sk, ce_t, lit_t, T, rng, 1)
+    checks["traceback_large_entry_taken"] = (
+        sk.LAUNCHES["traceback_large"] - before == 2)
+    del ce_t, lit_t
+    # compress() at ZT_TILE=32768, and the entry held and timed on that
+    # run's own K2 inputs.
+    big = _large_tile_subprocess(raw)
+    report["large_tile_compress"] = big
+    checks["large_tile_compress"] = (
+        big["roundtrip"] and big["launches"]["traceback"] == 0
+        and big["launches"]["traceback_large"]
+        == big["launches"]["scan"] > 0)
+    checks["traceback_large_real"] = big["bit_equal"] and big["entry_taken"]
+    checks["traceback_large_real_shape"] = (
+        big["shape"]["tile"] == LARGE_TILE
+        and big["shape"]["lanes"] == fused_engine.LANES)
+
+    ok = all(checks.values())
+    emit({"phase": "oracle", "ok": ok, "checks": checks, **report})
+    if not ok:
+        raise RuntimeError(f"oracle check failed: {checks}")
+    return {
+        "dp_scan": {"name": "dp_scan", "route": "cuda",
+                    "source": "zopfli_tpu_torch/csrc/dp_scan.cu",
+                    "replaces": sk.REPLACES["dp_scan"],
+                    "launches": od["launches"]["dp_scan"],
+                    "max_abs_err": max(err_a, err_b, err_c),
+                    "ms": report["dp_ms_16k"],
+                    "plain_ms": report["dp_plain_ms_16k"],
+                    "bound_ms": report["dp_bound_ms_16k"],
+                    "bound_by": report["dp_bound_by_16k"],
+                    "library_ms": None, "shape": {"B": 1, "L": 16384},
+                    "largest_bucket": {
+                        **report["largest_block"],
+                        "ms": report["dp_ms_largest"],
+                        "bound_ms": report["dp_bound_ms_largest"],
+                        "bound_by": report["dp_bound_by_largest"]}},
+        "traceback_large": {
+            "name": "traceback_large", "route": "cuda",
+            "source": "zopfli_tpu_torch/csrc/traceback.cu",
+            "replaces": sk.REPLACES["traceback_large"],
+            "launches": big["launches"]["traceback_large"],
+            "max_abs_err": big["max_abs_err"], "ms": big["ms"],
+            "plain_ms": big["plain_ms"], "bound_ms": big["bound_ms"],
+            "bound_by": big["bound_by"], "library_ms": None,
+            "shape": big["shape"]},
+    }
+
+
+def corpus_bytes(n: int) -> bytes:
+    """n bytes of the corpus files, concatenated and repeated."""
+    blob = b"".join(open(p, "rb").read() for p in corpus_paths())
+    return (blob * (n // len(blob) + 1))[:n]
+
+
+_MH_WORKER = r"""
+import json, sys, zlib
+sys.path.insert(0, {here!r})
+import torch
+import torch.distributed as dist
+rank = int(sys.argv[1])
+dist.init_process_group("gloo", init_method={addr!r}, world_size=2,
+                        rank=rank)
+try:
+    import zopfli_tpu_torch as zt
+    raw = open({path!r}, "rb").read()
+    out = zt.compress(raw, "gzip", zt.Options(numiterations=2,
+                                              device={device!r}))
+    if rank == 0:
+        open({outpath!r}, "wb").write(out)
+    else:
+        assert out is None
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_parallel(dev="cuda") -> dict:
+    """The multi-device and multi-process layer on the card: compress of
+    4 MiB of repo text (the fused loop at G=4), its K1/K2 held
+    against their plain versions on the loop's inputs and timed;
+    compress with the loop sharded over [cuda:0, cuda:0], byte-equal to
+    the unsharded run; compress_multihost in a world-size-1 gloo group,
+    byte-equal to compress at one master; two processes on this card in
+    a gloo group (2.1 MB, --i2), rank 0's bytes equal to the
+    single-process compress_multihost's."""
+    import importlib
+    import tempfile
+
+    import torch
+    import torch.distributed as tdist
+
+    import zopfli_tpu_torch as zt
+    from zopfli_tpu_torch.parallel import multihost
+
+    tdeflate = importlib.import_module("zopfli_tpu_torch.deflate")
+    dev = torch.device(dev)
+    checks, report = {}, {}
+    raw = corpus_bytes(4 * MIB)
+    opts = zt.Options(numiterations=ITERATIONS, device=str(dev))
+
+    _reset_counters()
+    kept, restore = _capture_fused_k1k2()
+    try:
+        t0 = time.time()
+        unsharded = zt.compress(raw, "gzip", opts)
+        torch.cuda.synchronize()
+        report["unsharded_seconds"] = time.time() - t0
+    finally:
+        restore()
+    report["unsharded"] = _counters()
+    G = kept["groups"]
+    report["groups"] = G
+    checks["groups_4"] = G == 4
+    checks["roundtrip_4mib"] = zlib.decompress(unsharded, 31) == raw
+    scan_in = kept["scan"]
+    rows, kbp, nt = scan_in[0].shape
+    k12, _ = _hold_k1k2(scan_in, *kept["traceback"], G, plain_reps=1)
+    del kept
+    checks.update({f"g4_{k}": v for k, v in k12["bit_equal"].items()})
+    report["g4"] = {"groups": G, "tile": rows // G, "lanes": nt, "kbp": kbp,
+                    **{k: v for k, v in k12.items() if k != "bit_equal"}}
+
+    local = tdeflate.local_devices
+    tdeflate.local_devices = lambda options: [dev, dev]
+    _reset_counters()
+    try:
+        t0 = time.time()
+        sharded = zt.compress(raw, "gzip", opts)
+        torch.cuda.synchronize()
+        report["sharded_seconds"] = time.time() - t0
+    finally:
+        tdeflate.local_devices = local
+    report["sharded"] = _counters()
+    checks["sharded_equal"] = sharded == unsharded
+    # The patched run really split the loop: each shard launches K1.
+    checks["sharded_ran"] = (report["sharded"]["launches"]["scan"]
+                             > report["unsharded"]["launches"]["scan"])
+    report["bytes"] = len(unsharded)
+
+    one = raw[:1_000_000]
+    tdist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                             f"{_free_port()}", world_size=1, rank=0)
+    try:
+        mh1 = multihost.compress_multihost(one, "gzip", opts)
+    finally:
+        tdist.destroy_process_group()
+    checks["multihost_world1_equal"] = mh1 == zt.compress(one, "gzip", opts)
+
+    two = raw[:2_100_000]
+    opts2 = zt.Options(numiterations=2, device=str(dev))
+    serial = multihost.compress_multihost(two, "gzip", opts2)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "in.bin")
+        outpath = os.path.join(tmp, "out.gz")
+        with open(path, "wb") as f:
+            f.write(two)
+        code = _MH_WORKER.format(here=HERE, path=path, outpath=outpath,
+                                 addr=f"tcp://127.0.0.1:{_free_port()}",
+                                 device=str(dev))
+        t0 = time.time()
+        procs = [subprocess.Popen([sys.executable, "-c", code, str(r)],
+                                  cwd=HERE, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for r in range(2)]
+        rcs, errs = [], []
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=300)
+                rcs.append(p.returncode)
+                errs.append(err[-1500:])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        report["two_process_seconds"] = time.time() - t0
+        report["two_process_rcs"] = rcs
+        got = open(outpath, "rb").read() if os.path.exists(outpath) else b""
+    checks["two_process_equal"] = rcs == [0, 0] and got == serial
+    if rcs != [0, 0]:
+        report["two_process_stderr"] = errs
+    checks["two_process_roundtrip"] = zlib.decompress(serial, 31) == two
+
+    ok = all(checks.values())
+    emit({"phase": "parallel", "ok": ok, "checks": checks, **report})
+    if not ok:
+        raise RuntimeError(f"parallel check failed: {checks}")
+    return report["g4"]
+
 
 def main(argv) -> int:
     import torch
@@ -1303,6 +1790,10 @@ def main(argv) -> int:
 
         phase_env(zt_scan)
         data = np.frombuffer(corpus_1mib(), dtype=np.uint8)
+        if only in ("oracle", "parallel"):
+            (phase_oracle if only == "oracle" else phase_parallel)(
+                *((data,) if only == "oracle" else ()))
+            return 0
         kernels = phase_kernels(data)
         if only == "kernels":
             return 0
@@ -1312,6 +1803,8 @@ def main(argv) -> int:
         inputs = png_inputs()
         png_launches, png_k12 = phase_png(inputs)
         phase_cli(data.tobytes(), gz, inputs)
+        oracle = phase_oracle(data)
+        g4 = phase_parallel()
         for k, entry in kernels.items():
             entry["launches"] = launches[k]
             entry["launches_png"] = png_launches[k]
@@ -1324,6 +1817,15 @@ def main(argv) -> int:
                     "plain_ms": png_k12[f"{k}_plain_ms"],
                     "bound_ms": png_k12[f"{k}_bound_ms"],
                     "bound_by": png_k12[f"{k}_bound_by"]}
+                # Times at the 4 MiB input's fused loop, G=4 (phase
+                # parallel).
+                entry["g4_shape"] = {
+                    "groups": g4["groups"],
+                    "max_abs_err": g4[f"{k}_err"], "ms": g4[f"{k}_ms"],
+                    "plain_ms": g4[f"{k}_plain_ms"],
+                    "bound_ms": g4[f"{k}_bound_ms"],
+                    "bound_by": g4[f"{k}_bound_by"]}
+        kernels.update(oracle)
         emit({"kernels": list(kernels.values())})
     except Exception:
         traceback.print_exc()

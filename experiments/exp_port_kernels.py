@@ -163,7 +163,8 @@ def main() -> int:
             "ms_slowest_group_on_256_lanes": wide}), flush=True)
 
     ce, _ = sk.scan(*real)
-    hist_ref, pe_ref = sk.traceback(ce, fs.lit_t, fs.tile_nbytes_d,
+    sh = fs.shards[0]
+    hist_ref, pe_ref = sk.traceback(ce, sh.lit_t, sh.tile_nbytes_d,
                                     fs.symtab)
     walk = (pe_ref != 0).sum(dim=0)
     len_bin, dist_bin = sk._device_bin_tables(fs.symtab, dev)
@@ -176,8 +177,8 @@ def main() -> int:
         stream = torch.cuda.current_stream().cuda_stream
 
         def call():
-            rc = fn(ce.data_ptr(), fs.lit_t.data_ptr(),
-                    fs.tile_nbytes_d.data_ptr(), len_bin.data_ptr(),
+            rc = fn(ce.data_ptr(), sh.lit_t.data_ptr(),
+                    sh.tile_nbytes_d.data_ptr(), len_bin.data_ptr(),
                     dist_bin.data_ptr(), hist.data_ptr(), pe.data_ptr(), 1,
                     rows, lanes, sk.DIST_TABLE, stream)
             if rc:

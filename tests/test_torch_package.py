@@ -42,7 +42,10 @@ def test_port_sources_import_no_jax_or_reference():
     assert {"zopfli_tpu_torch/ops/devsplit.py",
             "zopfli_tpu_torch/ops/seed.py", "zopfli_tpu_torch/cli.py",
             "zopfli_tpu_torch/png/cli.py",
-            "zopfli_tpu_torch/png/optimize.py"} <= names
+            "zopfli_tpu_torch/png/optimize.py", "zopfli_tpu_torch/ops/dp.py",
+            "zopfli_tpu_torch/ops/engine.py",
+            "zopfli_tpu_torch/parallel/dist.py",
+            "zopfli_tpu_torch/parallel/multihost.py"} <= names
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -77,6 +80,21 @@ def test_import_and_compress_leave_jax_unloaded(tmp_path):
         "out = optimize(png, PNGOptions(device='cpu', num_iterations=2))\n"
         "for p in (out, open('b.png', 'rb').read()):\n"
         "    assert (codec.decode(p)[0] == codec.decode(png)[0]).all()\n"
+        "from zopfli_tpu_torch.ops import dp, engine\n"
+        "from zopfli_tpu_torch.parallel import dist, multihost\n"
+        "arr = np.frombuffer(data, np.uint8)\n"
+        "lit, dst = engine.DeviceBlockEngine(arr, 0, len(arr),"
+        " device='cpu').squeeze_run(None, None)\n"
+        "assert np.where(dst == 0, 1, lit).sum() == len(arr)\n"
+        "bufs, mp, ie = dist.pack_blocks(arr, [(0, 2000), (2000, 4000)],"
+        " 2048)\n"
+        "cl, cd, cost, total = dist.sharded_pipeline(['cpu'] * 2, 2048)("
+        "bufs, mp, ie, np.full((2, 288), 8.0, np.float32),"
+        " np.full((2, 32), 5.0, np.float32))\n"
+        "assert cl.shape == (2, 2049) and float(total) > 0\n"
+        "mh = multihost.compress_multihost(data, 'gzip',"
+        " zt.Options(device='cpu', numiterations=2))\n"
+        "assert zlib.decompress(mh, 31) == data\n"
         "mods = [m for m in sys.modules if m == 'jax' or"
         " m.startswith(('jax.', 'zopfli_tpu.')) or m == 'zopfli_tpu']\n"
         "print(json.dumps(mods))\n")

@@ -45,9 +45,18 @@ def deflate_raw(data, options: Options | None = None) -> bytes:
 
 
 def compress(data, fmt: str = "gzip", options: Options | None = None) -> bytes:
-    """Compress `data` into the requested container format."""
+    """Compress `data` into the requested container format.
+
+    Inside a torch.distributed process group of more than one process
+    this routes to `parallel.multihost.compress_multihost` (master blocks
+    sharded over the processes; bytes on rank 0, None elsewhere): every
+    process must call it with identical data.
+    """
     options = options or Options()
     data = _as_u8(data)
+    from .parallel import multihost
+    if multihost.active():
+        return multihost.compress_multihost(data, fmt, options)
     if fmt == "deflate":
         result = deflate_raw(data, options)
     elif fmt == "gzip":

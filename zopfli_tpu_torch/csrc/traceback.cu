@@ -36,6 +36,14 @@
 //    are the same in any order).  lit is read only for literal path
 //    rows, in batches so that the loads overlap.
 // 5. The histogram is written once, as float32 (counts < 2^24 are exact).
+//
+// Tiles that do not fit (lanes_per_block(tile) == 0: past 17,611 rows, or
+// past the 16-bit positions of the jump table) take the second entry,
+// zt_traceback_large, with the same contract.  It keeps nothing of a tile
+// in shared memory: pe is zeroed, one thread per lane walks ce in device
+// memory (one dependent load per path row) writing pe on its path, then a
+// sweep of 32 lanes x 8 rows per block counts the path rows of pe into
+// per-lane shared histograms.  Positions are 32-bit, so any tile works.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -200,6 +208,77 @@ traceback_kernel(const int* __restrict__ ce, const int* __restrict__ lit,
   }
 }
 
+// Large tiles, step 1: one thread per (group, lane) walks its path in
+// device memory and writes pe on it (pe was zeroed before).
+__global__ void __launch_bounds__(128)
+traceback_walk_kernel(const int* __restrict__ ce,
+                      const int* __restrict__ tile_nbytes,
+                      int* __restrict__ pe, int groups, int tile,
+                      int lanes) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= groups * lanes) return;
+  const int g = i / lanes, lane = i - g * lanes;
+  int p = tile_nbytes[i];
+  if (p > tile) p = 0;  // the Pallas cursor would never match a row
+  const size_t row0 = (size_t)g * tile;
+  while (p > 0) {
+    const size_t o = (row0 + p - 1) * lanes + lane;
+    const int v = ce[o];
+    pe[o] = v;
+    const int l = v & LEN_MASK;
+    if (l == 0) break;  // the cursor stays put: no later row matches
+    p -= l;             // past the tile's start: the walk ends
+  }
+}
+
+constexpr int SWEEP_LANES = 32;
+constexpr int SWEEP_ROWS = 8;
+
+// Large tiles, step 2: a block counts the path rows of 32 adjacent lanes
+// of one group (8 rows at a time, coalesced) into shared histograms.
+__global__ void __launch_bounds__(SWEEP_LANES * SWEEP_ROWS)
+traceback_sweep_kernel(const int* __restrict__ pe,
+                       const int* __restrict__ lit,
+                       const int* __restrict__ len_bin,
+                       const int* __restrict__ dist_bin,
+                       float* __restrict__ hist, int tile, int lanes,
+                       int ndist) {
+  __shared__ int sh[SWEEP_LANES * HBINS];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int tid = ty * SWEEP_LANES + tx;
+  const int lane = blockIdx.x * SWEEP_LANES + tx;
+  const int g = blockIdx.y;
+  for (int i = tid; i < SWEEP_LANES * HBINS; i += SWEEP_LANES * SWEEP_ROWS)
+    sh[i] = 0;
+  __syncthreads();
+  if (lane < lanes) {
+    const size_t row0 = (size_t)g * tile;
+    int* mine = sh + tx * HBINS;
+    for (int r = ty; r < tile; r += SWEEP_ROWS) {
+      const size_t o = (row0 + r) * lanes + lane;
+      const int v = pe[o];
+      const int l = v & LEN_MASK;
+      if (l == 1) {
+        const int b = lit[o];
+        if (b >= 0 && b < HBINS) atomicAdd(mine + b, 1);
+      } else if (l >= 3) {
+        const int lb = __ldg(len_bin + l);
+        if (lb >= 0) atomicAdd(mine + lb, 1);
+        const int d = v >> LEN_BITS;
+        const int db = (d >= 0 && d < ndist) ? __ldg(dist_bin + d) : -1;
+        if (db >= 0) atomicAdd(mine + db, 1);
+      }
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < SWEEP_LANES * HBINS; i += SWEEP_LANES * SWEEP_ROWS) {
+    const int b = i / SWEEP_LANES, w = i - b * SWEEP_LANES;
+    const int ln = blockIdx.x * SWEEP_LANES + w;
+    if (ln < lanes)
+      hist[((size_t)g * HBINS + b) * lanes + ln] = (float)sh[w * HBINS + b];
+  }
+}
+
 }  // namespace
 
 extern "C" int zt_traceback_lanes_per_block(int tile) {
@@ -231,5 +310,31 @@ extern "C" int zt_traceback(const void* ce, const void* lit,
       (const int*)ce, (const int*)lit, (const int*)tile_nbytes,
       (const int*)len_bin, (const int*)dist_bin, (float*)hist, (int*)pe,
       tile, lanes, ndist, lsh);
+  return (int)cudaGetLastError();
+}
+
+// The entry for any tile (positions are 32-bit); the wrapper takes it
+// where zt_traceback_lanes_per_block(tile) == 0.
+extern "C" int zt_traceback_large(const void* ce, const void* lit,
+                                  const void* tile_nbytes,
+                                  const void* len_bin, const void* dist_bin,
+                                  void* hist, void* pe, int groups, int tile,
+                                  int lanes, int ndist, void* stream) {
+  if (tile <= 0 || lanes <= 0 || groups <= 0 || ndist <= 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(
+      pe, 0, sizeof(int) * (size_t)groups * tile * lanes, st);
+  if (err != cudaSuccess) return (int)err;
+  const int walkers = groups * lanes;
+  traceback_walk_kernel<<<(walkers + 127) / 128, 128, 0, st>>>(
+      (const int*)ce, (const int*)tile_nbytes, (int*)pe, groups, tile,
+      lanes);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((lanes + SWEEP_LANES - 1) / SWEEP_LANES, groups);
+  traceback_sweep_kernel<<<grid, dim3(SWEEP_LANES, SWEEP_ROWS), 0, st>>>(
+      (const int*)pe, (const int*)lit, (const int*)len_bin,
+      (const int*)dist_bin, (float*)hist, tile, lanes, ndist);
   return (int)cudaGetLastError();
 }

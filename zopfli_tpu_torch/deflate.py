@@ -68,6 +68,19 @@ def resolve_device(options: Options):
     return dev
 
 
+def local_devices(options: Options):
+    """Every CUDA device, to shard the fused loop's lane groups over, when
+    the device engine runs on CUDA and there is more than one; else None
+    (the counterpart of the reference's local_mesh)."""
+    import torch
+
+    if (options.engine != "device"
+            or torch.device(options.device).type != "cuda"
+            or torch.cuda.device_count() <= 1):
+        return None
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def default_engine_factory(options: Options) -> Callable:
     # Auxiliary per-block engines (fixed-tree re-parse probes) run on
     # the host.
@@ -300,7 +313,8 @@ def deflate_part(options: Options, btype: int, final: bool, data: np.ndarray,
         entry = devseed_dispatch(data, [(instart, inend)],
                                  options.numiterations,
                                  scaled_maxblocks(options, inend - instart),
-                                 device=resolve_device(options))
+                                 device=resolve_device(options),
+                                 devices=local_devices(options))
         results = devseed_collect(entry, options.numiterations,
                                   trace=_devseed_trace(tracer, entry))
         emit_results(options, data, [(instart, inend, final)], results,
@@ -318,7 +332,8 @@ def deflate_part(options: Options, btype: int, final: bool, data: np.ndarray,
         if inend > instart:
             stores = lz77_optimal_fused(
                 data, [(instart, inend, bounds)], options.numiterations,
-                greedy_fn, device=resolve_device(options), trace=trace)[0]
+                greedy_fn, device=resolve_device(options), trace=trace,
+                devices=local_devices(options))[0]
         else:
             stores = [LZ77Store(data, np.zeros(0, np.uint16),
                                 np.zeros(0, np.uint16), instart)]
@@ -505,10 +520,12 @@ def _deflate_fused_masters(options: Options, data: np.ndarray, masters,
     from .squeeze_batched import fused_collect, fused_dispatch
 
     device = resolve_device(options)
+    devices = local_devices(options)
     chunks = _chunk_masters(options, masters)
     if _use_devseed():
         _devseed_pipeline(options, data, chunks, lambda m: 0,
-                          lambda m: out, lambda m: engine_factory, device)
+                          lambda m: out, lambda m: engine_factory, device,
+                          devices)
         return
 
     pending = None  # (chunk, fs, handle)
@@ -524,7 +541,8 @@ def _deflate_fused_masters(options: Options, data: np.ndarray, masters,
                   split_master(options, data, start, end, greedy_fn))
                  for (start, end, _fin) in chunk]
         fs, handle = fused_dispatch(data, specs, options.numiterations,
-                                    greedy_fn, device=device)
+                                    greedy_fn, device=device,
+                                    devices=devices)
         if pending is not None:
             emit(pending)
         pending = (chunk, fs, handle)
@@ -554,7 +572,7 @@ def _chunk_masters(options: Options, masters) -> list[list]:
 
 
 def _devseed_pipeline(options: Options, data, chunks, window_start,
-                      out_for, factory_for, device) -> None:
+                      out_for, factory_for, device, devices=None) -> None:
     """Software pipeline over chunks of masters: queue chunk N's seed
     parses, emit chunk N-1 (host) while the device runs them, then
     finish chunk N's seeds and queue its squeeze.
@@ -585,7 +603,7 @@ def _devseed_pipeline(options: Options, data, chunks, window_start,
             emit(*pending)
         entry = devseed_dispatch(data, ranges, options.numiterations, mb,
                                  window_starts=wstarts, fired=fired,
-                                 device=device)
+                                 device=device, devices=devices)
         pending = (chunk, entry)
     emit(*pending)
 
@@ -626,4 +644,5 @@ def deflate_many(options: Options, data: np.ndarray, blob_ranges,
 
     _devseed_pipeline(options, data, _chunk_masters(options, masters),
                       lambda m: blob_start[m[3]], lambda m: outs[m[3]],
-                      lambda m: blob_factory(m[3]), device)
+                      lambda m: blob_factory(m[3]), device,
+                      local_devices(options))

@@ -361,10 +361,11 @@ def hist_dynamic_cost(ll_counts: torch.Tensor,
         raise ValueError("hist_dynamic_cost: inputs on different devices")
     lib = scan_kernel.build_kernels()["hist_cost"]
     out = torch.empty(B, dtype=torch.int64, device=ll.device)
-    stream = torch.cuda.current_stream(ll.device).cuda_stream
-    scan_kernel.raise_on(lib.zt_hist_cost(ll.data_ptr(), d.data_ptr(),
-                                          out.data_ptr(), B, stream),
-                         "hist_cost")
+    with torch.cuda.device(ll.device):
+        stream = torch.cuda.current_stream(ll.device).cuda_stream
+        scan_kernel.raise_on(lib.zt_hist_cost(ll.data_ptr(), d.data_ptr(),
+                                              out.data_ptr(), B, stream),
+                             "hist_cost")
     scan_kernel.LAUNCHES["hist_cost"] += 1
     return out
 

@@ -194,12 +194,13 @@ def autotype_costs(ll_ck, d_ck, ll_sym, d_sym, bcum, starts, ends,
         small = int(bool(small_store))
     lib = scan_kernel.build_kernels()["hist_cost"]
     out = torch.empty(B, dtype=torch.int64, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    scan_kernel.raise_on(lib.zt_autotype_cost(
-        ll_ck.data_ptr(), d_ck.data_ptr(), ll_sym.data_ptr(),
-        d_sym.data_ptr(), bcum.data_ptr(), starts.data_ptr(),
-        ends.data_ptr(), gate_ptr, out.data_ptr(), B, ncap, small, stream),
-        "autotype_cost")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scan_kernel.raise_on(lib.zt_autotype_cost(
+            ll_ck.data_ptr(), d_ck.data_ptr(), ll_sym.data_ptr(),
+            d_sym.data_ptr(), bcum.data_ptr(), starts.data_ptr(),
+            ends.data_ptr(), gate_ptr, out.data_ptr(), B, ncap, small,
+            stream), "autotype_cost")
     scan_kernel.LAUNCHES["autotype_cost"] += 1
     return out
 

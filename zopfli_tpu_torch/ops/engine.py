@@ -1,0 +1,171 @@
+"""Per-block squeeze engine on the device: the oracle block engine.
+
+Port of zopfli_tpu/ops/engine.py (`TpuBlockEngine`, `tpu_greedy`).  It
+presents the interface of native.BlockEngine (`squeeze_run(ll_cost,
+d_cost)`, `close()`), so squeeze.lz77_optimal can drive either: pass
+`engine_factory=DeviceBlockEngine` to deflate() with
+Options(engine="native").  The match candidate table is built once per
+block on the device (ops.hashmatch); each squeeze run reruns only the DP
+scan (ops.dp, the dp_scan kernel on CUDA) with new cost vectors.
+
+The candidate search is hash-based, so a chosen match could in principle
+be a hash collision: every run is verified against the input bytes on
+the host, with a fallback to the exact native engine -- the reference's
+own semantics, counted in FALLBACKS.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import spec
+from . import dp, hashmatch
+from .fused_engine import _filler
+
+# Diagnostic counter: native fallbacks after a failed byte verification.
+FALLBACKS = [0]
+
+
+def _bucket(n: int) -> int:
+    """Pad block lengths to powers of two >= 16 KiB (the JAX package's
+    buckets, so that both packages see the same padding)."""
+    cap = 16384
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+def _fixed_cost_vectors():
+    """The fixed-tree cost model as (ll_cost[288], d_cost[32]) vectors.
+
+    GetCostFixed (squeeze.c:125-140) decomposes exactly into this form:
+    per-symbol base bits plus the extra bits the DP adds itself.
+    """
+    ll = np.zeros(spec.NUM_LL, dtype=np.float32)
+    ll[0:144] = 8
+    ll[144:256] = 9
+    ll[256:280] = 7
+    ll[280:288] = 8
+    d = np.full(spec.NUM_D, 5, dtype=np.float32)
+    return ll, d
+
+
+_FIXED_LL, _FIXED_D = _fixed_cost_vectors()
+
+
+class DeviceBlockEngine:
+    """Per-block squeeze engine on a torch device ("cuda" by default)."""
+
+    def __init__(self, data: np.ndarray, instart: int, inend: int,
+                 device="cuda"):
+        self.data = np.asarray(data, dtype=np.uint8)
+        self.instart = instart
+        self.inend = inend
+        self.L = inend - instart
+        self.device = torch.device(device)
+        self._prepared = False
+
+    def _prepare(self):
+        if self._prepared or self.L == 0:
+            self._prepared = True
+            return
+        dev = self.device
+        L = self.L
+        cap = _bucket(L)
+        prefix_len = min(self.instart, spec.WINDOW_SIZE)
+        total = hashmatch.PREFIX + cap + 264
+        buf = np.empty(total, dtype=np.uint8)
+        # Filler pattern for rows outside the valid prefix (rejected via
+        # min_pos, pattern only avoids degenerate equal-hash buckets).
+        buf[:hashmatch.PREFIX] = _filler(hashmatch.PREFIX)
+        if prefix_len:
+            buf[hashmatch.PREFIX - prefix_len : hashmatch.PREFIX] = \
+                self.data[self.instart - prefix_len : self.instart]
+        buf[hashmatch.PREFIX : hashmatch.PREFIX + L] = \
+            self.data[self.instart : self.inend]
+        buf[hashmatch.PREFIX + L :] = 0
+
+        bp_len, bp_dist, _ = hashmatch.build_candidates(
+            torch.from_numpy(buf).to(dev), cap,
+            hashmatch.PREFIX - prefix_len, hashmatch.PREFIX + L)
+        self._bp_len = bp_len.to(torch.int32)[None].contiguous()  # (1,cap,K)
+        self._bp_dist = bp_dist.to(torch.int32)[None].contiguous()
+        dsym = dp.dist_symbol(torch.clamp(self._bp_dist, min=1))
+        self._bp_dsym = dsym
+        self._bp_dextra = torch.from_numpy(dp.DSYM_EXTRA).to(dev)[dsym.long()]
+        block = np.zeros(cap, dtype=np.int32)
+        block[:L] = self.data[self.instart : self.inend]
+        self._data_block = torch.from_numpy(block).to(dev)[None]
+        mask = np.zeros(cap, dtype=bool)
+        mask[:L] = True
+        self._mask = torch.from_numpy(mask).to(dev)[None]
+        self._cap = cap
+        self._prepared = True
+
+    def close(self):
+        pass
+
+    def squeeze_run(self, ll_cost=None, d_cost=None):
+        """One optimal-parse run; None cost arrays select the fixed model."""
+        if self.L == 0:
+            return (np.zeros(0, np.uint16), np.zeros(0, np.uint16))
+        self._prepare()
+        if ll_cost is None:
+            ll_cost, d_cost = _FIXED_LL, _FIXED_D
+        dev = self.device
+        ll = torch.from_numpy(np.asarray(ll_cost, np.float32)).to(dev)[None]
+        dd = torch.from_numpy(np.asarray(d_cost, np.float32)).to(dev)[None]
+        lcost_vec, bp_dcost, litcost = dp.edge_cost_tables(
+            ll, dd, self._bp_dsym, self._bp_dextra, self._data_block)
+        choice_len, choice_dist, _ = dp.squeeze_scan(
+            self._bp_len, self._bp_dist, bp_dcost.contiguous(),
+            litcost.contiguous(), lcost_vec.contiguous(), self._mask)
+        cl = choice_len[0, : self.L + 1].cpu().numpy()
+        cd = choice_dist[0, : self.L + 1].cpu().numpy()
+        block = self.data[self.instart : self.inend]
+        litlens, dists = dp.traceback(cl, cd, self.L, block)
+        if not self._verify(litlens, dists, block):
+            # Hash collision produced a bogus match: exact fallback.
+            FALLBACKS[0] += 1
+            from .. import native
+            eng = native.BlockEngine(self.data, self.instart, self.inend)
+            try:
+                return eng.squeeze_run(
+                    None if ll_cost is _FIXED_LL else ll_cost, d_cost)
+            finally:
+                eng.close()
+        return litlens, dists
+
+    def _verify(self, litlens: np.ndarray, dists: np.ndarray,
+                block: np.ndarray) -> bool:
+        """Every chosen match must literally reproduce its bytes."""
+        if len(litlens) == 0:
+            return True
+        step = np.where(dists == 0, 1, litlens).astype(np.int64)
+        pos = np.concatenate([[0], np.cumsum(step[:-1])]) + self.instart
+        m = dists != 0
+        if not m.any():
+            return True
+        mp = pos[m]
+        md = dists[m].astype(np.int64)
+        ml = litlens[m].astype(np.int64)
+        if (md > mp).any():
+            return False
+        # Flatten all match extents into one gather-compare.
+        total = int(ml.sum())
+        offs = np.arange(total) - np.repeat(np.cumsum(ml) - ml, ml)
+        dsts = np.repeat(mp, ml) + offs
+        srcs = np.repeat(mp - md, ml) + offs
+        return bool(np.array_equal(self.data[dsts], self.data[srcs]))
+
+
+def device_greedy(data: np.ndarray, instart: int, inend: int):
+    """Greedy seed parse.
+
+    The greedy pass only seeds iteration-0 statistics and the
+    pre-splitting; it is a serial scan, so it runs on the native host
+    engine, as in the reference package.
+    """
+    from .. import native
+    return native.greedy(data, instart, inend)

@@ -1,6 +1,6 @@
-"""Fused multi-master squeeze engine, on one device, in PyTorch.
+"""Fused multi-master squeeze engine in PyTorch, on one or more devices.
 
-Port of zopfli_tpu/ops/fused_engine.py (single device, no mesh).
+Port of zopfli_tpu/ops/fused_engine.py.
 
 Tiles from ALL masters of an input share fixed-size lane groups, and
 the whole iteration loop of reference squeeze.c:446-526 runs on the
@@ -12,11 +12,21 @@ eager Python loop of `numiterations` steps whose tensor work queues on
 the device without a host round trip; the host pulls the chosen parses
 once, compacted (paths are sparse; positions are implied by the symbol
 sequence, so each row packs into one int32).
+
+With `devices` (the counterpart of the reference's `mesh`), the lane
+groups are split over the devices: each shard runs its groups' cost
+expansion, K1, K2 and lane histogram on its own device, and the one
+reduction per iteration sums the shards' int64 block histograms on the
+control device, where the iteration control stays (the reference's psum,
+fused_engine.py:171-175).  The per-block costs go back out to the shards
+each iteration.  Histograms are integers, so any sharding gives the
+unsharded parses bit for bit.
 """
 
 from __future__ import annotations
 
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -89,15 +99,20 @@ class FusedSqueeze:
     """
 
     def __init__(self, data: np.ndarray, masters, device="cuda",
-                 cand=None, window_starts=None):
+                 cand=None, window_starts=None, devices=None):
         """cand: optional per-master [(bp_len, bp_dist)] arrays (numpy or
         torch) of shape (cap(master), KBP), used instead of building the
         candidate tables (they depend only on the input bytes; the seed
         program's stay on the device).  window_starts: per-master first
         byte the LZ77 window may reach back to (default 0 = all
         preceding bytes; multi-file batches concatenate independent
-        inputs, so matches must not cross)."""
+        inputs, so matches must not cross).  devices: optional list of
+        torch devices to shard the lane groups over (the group count
+        rounds up to a multiple of their number); `device` keeps the
+        candidate tables and the iteration control."""
         self.device = dev = torch.device(device)
+        self.devices = (None if devices is None
+                        else [torch.device(d) for d in devices])
         self.data = data
         self.masters = [(int(s), int(e), [int(b) for b in bb])
                         for (s, e, bb) in masters]
@@ -143,6 +158,10 @@ class FusedSqueeze:
         g = 1
         while g < ngroups:
             g *= 2
+        if self.devices is not None:
+            # Also a device multiple: every shard holds whole groups.
+            nd = len(self.devices)
+            g = -(-g // nd) * nd
         self.ngroups = ngroups = g
 
         # Replica restarts: free lanes carry COPIES of blocks seeded
@@ -242,45 +261,65 @@ class FusedSqueeze:
             torch.cat([p[i] for p in preps], dim=0).contiguous()
             for i in range(5))
         del preps
-        self.bl_t = bl_t.to(torch.int32)
-        self.bd_t = bd_t.to(torch.int32)
-        self.lit_t = lit_t.to(torch.int32)
-        self.valid_t = valid_t.reshape(G, TILE, LANES)
-        # Flat gather indices of the per-lane cost tables (G, NSYM, LANES):
-        # bp_dcost[g,t,k,l] = dplus[g, dsym, l]; litcost[g,t,l] = ll[g, lit, l].
-        lane = torch.arange(LANES, device=dev)
-        gidx = torch.arange(G, device=dev)
-        self._dsym_idx = ((gidx[:, None, None, None] * spec.NUM_D
-                           + dsym_t.reshape(G, TILE, KBP, LANES).long())
-                          * LANES + lane)
-        self._lit_idx = ((gidx[:, None, None] * spec.NUM_LL
-                          + lit_t.reshape(G, TILE, LANES).long())
-                         * LANES + lane)
-
-        # Per-lane block of the histogram reduction (used lanes only).
-        self._tile_block_d = torch.from_numpy(
-            self.tile_block.reshape(G, LANES)).to(dev).long()
-        self._lane_used = (tile_nbytes_d > 0).reshape(G * LANES, 1)
-        self.tile_nbytes_d = tile_nbytes_d.reshape(G, LANES).contiguous()
         # Host table: the traceback wrapper reads it without a sync.
         self.symtab = scan_kernel.symbol_range_table()
-        self._lsym = torch.from_numpy(_LSYM).to(dev)
-        self._lextra = torch.from_numpy(_LEXTRA).to(dev)
-        self._dsym_extra = torch.from_numpy(_DSYM_EXTRA).to(dev)
         self.default_fetch_cap = TILE // 2
+
+        # Shards: groups [g0, g0 + n) of the lane-group tensors on their
+        # device.  Only the shards keep them: unsharded, the one shard's
+        # tensors are the full ones, without copies.
+        full = SimpleNamespace(
+            bl_t=bl_t.to(torch.int32), bd_t=bd_t.to(torch.int32),
+            lit_t=lit_t.to(torch.int32), dsym_t=dsym_t,
+            valid_t=valid_t.reshape(G, TILE, LANES),
+            # Per-lane block of the histogram reduction (used lanes only).
+            tile_block_d=torch.from_numpy(
+                self.tile_block.reshape(G, LANES)).to(dev).long(),
+            tile_nbytes_d=tile_nbytes_d.reshape(G, LANES).contiguous())
+        del bl_t, bd_t, lit_t, dsym_t, valid_t
+        devs = self.devices or [dev]
+        per = G // len(devs)
+        self.shards = [self._shard(full, d, i * per, per)
+                       for i, d in enumerate(devs)]
+
+    @staticmethod
+    def _shard(full, d, g0: int, n: int):
+        """The lane-group tensors of groups [g0, g0 + n) on device d."""
+        rows = slice(g0 * TILE, (g0 + n) * TILE)
+        grp = slice(g0, g0 + n)
+        sh = SimpleNamespace(
+            device=d, groups=n,
+            bl_t=full.bl_t[rows].to(d), bd_t=full.bd_t[rows].to(d),
+            lit_t=full.lit_t[rows].to(d),
+            valid_t=full.valid_t[grp].to(d),
+            tile_block_d=full.tile_block_d[grp].to(d),
+            tile_nbytes_d=full.tile_nbytes_d[grp].to(d),
+            lsym=torch.from_numpy(_LSYM).to(d),
+            lextra=torch.from_numpy(_LEXTRA).to(d),
+            dsym_extra=torch.from_numpy(_DSYM_EXTRA).to(d))
+        sh.lane_used = (sh.tile_nbytes_d > 0).reshape(n * LANES, 1)
+        # Flat gather indices of the per-lane cost tables (n, NSYM, LANES):
+        # bp_dcost[g,t,k,l] = dplus[g, dsym, l]; litcost[g,t,l] = ll[g, lit, l].
+        lane = torch.arange(LANES, device=d)
+        gidx = torch.arange(n, device=d)
+        sh.dsym_idx = ((gidx[:, None, None, None] * spec.NUM_D
+                        + full.dsym_t[rows].to(d).reshape(n, TILE, KBP, LANES)
+                        .long()) * LANES + lane)
+        sh.lit_idx = ((gidx[:, None, None] * spec.NUM_LL
+                       + sh.lit_t.reshape(n, TILE, LANES).long())
+                      * LANES + lane)
+        return sh
 
     # --- one iteration -----------------------------------------------------
 
-    def scan_inputs(self, stats_ll: torch.Tensor, stats_d: torch.Tensor):
-        """The DP scan's inputs under the entropy model of the stats.
+    def _block_costs(self, stats_ll: torch.Tensor, stats_d: torch.Tensor):
+        """Per-block model costs (nb_pad, 288), (nb_pad, 32) of the stats.
 
         Model costs are quantized to a 1/TIE_GRID-bit grid: per-tile path
         sums of grid multiples stay exact in f32, so cost ties are real
         ties and the kernel's relaxation order resolves them as the
         reference DP does (squeeze.c:288-302).
-        Returns (bl_t, bd_t, bp_dcost, litcost, lcost_vec).
         """
-        G = self.ngroups
         ll_cost_b = costmodel.calculate_entropy(stats_ll)
         d_cost_b = costmodel.calculate_entropy(stats_d)
         if TIE_GRID:
@@ -288,40 +327,63 @@ class FusedSqueeze:
                                 device=self.device)
             ll_cost_b = torch.round(ll_cost_b * grid) / grid
             d_cost_b = torch.round(d_cost_b * grid) / grid
-        ll_t = ll_cost_b[self._tile_block_d]           # (G, LANES, 288)
-        d_t = d_cost_b[self._tile_block_d]             # (G, LANES, 32)
-        lcost_vec = (ll_t[:, :, self._lsym] + self._lextra).permute(
+        return ll_cost_b, d_cost_b
+
+    @staticmethod
+    def _shard_inputs(sh, ll_cost_b, d_cost_b):
+        """One shard's DP scan inputs from the per-block costs (on the
+        shard's device): (bl_t, bd_t, bp_dcost, litcost, lcost_vec)."""
+        G = sh.groups
+        ll_t = ll_cost_b[sh.tile_block_d]              # (G, LANES, 288)
+        d_t = d_cost_b[sh.tile_block_d]                # (G, LANES, 32)
+        lcost_vec = (ll_t[:, :, sh.lsym] + sh.lextra).permute(
             0, 2, 1).reshape(G * scan_kernel.W, LANES).contiguous()
-        dplus = (d_t + self._dsym_extra).permute(0, 2, 1).reshape(-1)
-        bp_dcost = dplus[self._dsym_idx].reshape(G * TILE, KBP, LANES)
-        litcost = ll_t.permute(0, 2, 1).reshape(-1)[self._lit_idx]
-        litcost = torch.where(self.valid_t, litcost, scan_kernel.BIG)
-        return (self.bl_t, self.bd_t, bp_dcost.contiguous(),
+        dplus = (d_t + sh.dsym_extra).permute(0, 2, 1).reshape(-1)
+        bp_dcost = dplus[sh.dsym_idx].reshape(G * TILE, KBP, LANES)
+        litcost = ll_t.permute(0, 2, 1).reshape(-1)[sh.lit_idx]
+        litcost = torch.where(sh.valid_t, litcost, scan_kernel.BIG)
+        return (sh.bl_t, sh.bd_t, bp_dcost.contiguous(),
                 litcost.reshape(G * TILE, LANES).contiguous(), lcost_vec)
 
+    def scan_inputs(self, stats_ll: torch.Tensor, stats_d: torch.Tensor):
+        """The DP scan's inputs of the first shard (all groups when
+        unsharded) under the entropy model of the stats.
+        Returns (bl_t, bd_t, bp_dcost, litcost, lcost_vec)."""
+        sh = self.shards[0]
+        return self._shard_inputs(sh, *(c.to(sh.device) for c in
+                                        self._block_costs(stats_ll,
+                                                          stats_d)))
+
     def _one_iteration(self, stats_ll, stats_d):
-        G = self.ngroups
-        ce, _ = scan_kernel.scan(*self.scan_inputs(stats_ll, stats_d),
-                                 groups=G)
-        hist_g, pep = scan_kernel.traceback(ce, self.lit_t,
-                                            self.tile_nbytes_d, self.symtab,
-                                            groups=G)
-        # Per-block histograms: an integer index_add over the lanes'
-        # blocks (counts are exact; no float matmul).
-        lanes_h = hist_g.reshape(G, scan_kernel.HBINS, LANES).permute(
-            0, 2, 1).reshape(G * LANES, scan_kernel.HBINS).long()
-        lanes_h = lanes_h * self._lane_used
-        hist = torch.zeros((self.nb_pad, scan_kernel.HBINS),
-                           dtype=torch.int64, device=self.device)
-        hist.index_add_(0, self._tile_block_d.reshape(-1), lanes_h)
-        return (hist[:, :spec.NUM_LL], hist[:, spec.NUM_LL:],
-                pep.reshape(G, TILE, LANES))
+        costs = self._block_costs(stats_ll, stats_d)
+        hist, peps = None, []
+        for sh in self.shards:
+            G = sh.groups
+            ce, _ = scan_kernel.scan(*self._shard_inputs(
+                sh, *(c.to(sh.device) for c in costs)), groups=G)
+            hist_g, pep = scan_kernel.traceback(ce, sh.lit_t,
+                                                sh.tile_nbytes_d,
+                                                self.symtab, groups=G)
+            # Per-block histograms: an integer index_add over the lanes'
+            # blocks (counts are exact; no float matmul).
+            lanes_h = hist_g.reshape(G, scan_kernel.HBINS, LANES).permute(
+                0, 2, 1).reshape(G * LANES, scan_kernel.HBINS).long()
+            lanes_h = lanes_h * sh.lane_used
+            h = torch.zeros((self.nb_pad, scan_kernel.HBINS),
+                            dtype=torch.int64, device=sh.device)
+            h.index_add_(0, sh.tile_block_d.reshape(-1), lanes_h)
+            # The one reduction across shards: their integer block
+            # histograms summed on the control device.
+            h = h.to(self.device)
+            hist = h if hist is None else hist + h
+            peps.append(pep.reshape(G, TILE, LANES))
+        return hist[:, :spec.NUM_LL], hist[:, spec.NUM_LL:], peps
 
     def _body(self, i: int, state, ll_maps, d_maps, rep_off):
         (stats_ll, stats_d, best_cost, best_sll, best_sd,
          last_cost, last_rand, ec, best_pe) = state
 
-        ll_hist, d_hist, pep = self._one_iteration(stats_ll, stats_d)
+        ll_hist, d_hist, peps = self._one_iteration(stats_ll, stats_d)
 
         # Exact dynamic-block bits incl. 3-bit header (squeeze.c:492).
         cost = 3 + costmodel.hist_dynamic_cost(ll_hist, d_hist)
@@ -329,8 +391,9 @@ class FusedSqueeze:
         best_cost = torch.where(improved, cost, best_cost)
         best_sll = torch.where(improved[:, None], stats_ll, best_sll)
         best_sd = torch.where(improved[:, None], stats_d, best_sd)
-        lane_imp = improved[self._tile_block_d]          # (G, LANES)
-        best_pe = torch.where(lane_imp[:, None, :], pep, best_pe)
+        best_pe = [torch.where(improved.to(sh.device)[sh.tile_block_d]
+                               [:, None, :], pep, bpe)
+                   for sh, pep, bpe in zip(self.shards, peps, best_pe)]
 
         # Stats feedback (squeeze.c:503-517).  Counts are integers;
         # trunc(new + 0.5*last) == new + last // 2 exactly.
@@ -430,8 +493,8 @@ class FusedSqueeze:
                  zeros(nbp, spec.NUM_LL), zeros(nbp, spec.NUM_D), zeros(nbp),
                  torch.full((nbp,), -1, dtype=torch.int64, device=dev),
                  zeros(nbp),
-                 torch.zeros((self.ngroups, TILE, LANES), dtype=torch.int32,
-                             device=dev))
+                 [torch.zeros((sh.groups, TILE, LANES), dtype=torch.int32,
+                              device=sh.device) for sh in self.shards])
         rep_off_d = torch.from_numpy(rep_off).to(dev)
         with span("zt.iterations"):
             for i in range(int(numiterations)):
@@ -439,14 +502,18 @@ class FusedSqueeze:
 
         (_, _, best_cost, best_sll, best_sd, _, _, _, best_pe) = state
         # Compact each lane's sparse packed path rows to the front (a
-        # stable sort by emptiness keeps rows position-ordered).  best_pe
-        # is also kept: a lane overflowing fetch_cap pulls it instead.
-        empty = (best_pe == 0).to(torch.int32)
-        order = torch.sort(empty, dim=1, stable=True).indices
-        pe_c = torch.gather(best_pe, 1, order)
-        nsym = (1 - empty).sum(dim=1)
-        packed = pe_c[:, :fetch_cap, :]
-        out = (best_cost, best_sll, best_sd, nsym, packed, best_pe)
+        # stable sort by emptiness keeps rows position-ordered), on each
+        # shard's device.  best_pe is also kept: a lane overflowing
+        # fetch_cap pulls it instead.
+        nsym, packed = [], []
+        for bpe in best_pe:
+            empty = (bpe == 0).to(torch.int32)
+            order = torch.sort(empty, dim=1, stable=True).indices
+            pe_c = torch.gather(bpe, 1, order)
+            nsym.append((1 - empty).sum(dim=1).to(dev))
+            packed.append(pe_c[:, :fetch_cap, :].to(dev))
+        out = (best_cost, best_sll, best_sd, torch.cat(nsym),
+               torch.cat(packed), best_pe)
         return (out, seed_ll, seed_d, numiterations, fetch_cap)
 
     def collect(self, handle):
@@ -458,7 +525,8 @@ class FusedSqueeze:
         over = (nsym_h[:self.nt] > fetch_cap).any()
         if over:
             FETCH_RETRIES[0] += 1
-            pe_h = best_pe.cpu().numpy()               # (G, TILE, LANES)
+            pe_h = np.concatenate([p.cpu().numpy()     # (G, TILE, LANES)
+                                   for p in best_pe])
         else:
             packed_h = packed.cpu().numpy()            # (G, cap, LANES)
         cost_all = best_cost.cpu().numpy()[:self.nb_total]

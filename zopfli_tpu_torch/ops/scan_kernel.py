@@ -47,16 +47,20 @@ MAX_KBP = 16     # breakpoints per position the CUDA scan supports
 # Kernel launches, counted by the wrappers where they launch a kernel
 # (hist_cost's wrapper is costmodel.hist_dynamic_cost, autotype_cost's
 # devsplit.autotype_costs; both kernels are in csrc/hist_cost.cu).
-LAUNCHES = {"scan": 0, "traceback": 0, "hist_cost": 0, "autotype_cost": 0}
+LAUNCHES = {"scan": 0, "traceback": 0, "traceback_large": 0,
+            "hist_cost": 0, "autotype_cost": 0, "dp_scan": 0}
 
 # What each kernel replaces, for reports.
 REPLACES = {
     "scan": "zopfli_tpu/ops/scan_kernel.py:163",
     "traceback": "zopfli_tpu/ops/scan_kernel.py:289",
+    "traceback_large": "zopfli_tpu/ops/scan_kernel.py:289",
     "hist_cost": "no TPU counterpart: XLA ops at "
                  "zopfli_tpu/ops/costmodel.py:354",
     "autotype_cost": "no TPU counterpart: XLA ops at "
                      "zopfli_tpu/ops/devsplit.py:104",
+    "dp_scan": "no TPU counterpart: XLA lax.scan at "
+               "zopfli_tpu/ops/dp.py:68",
 }
 
 
@@ -241,7 +245,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 SOURCES = {"scan": "csrc/scan.cu", "traceback": "csrc/traceback.cu",
-           "hist_cost": "csrc/hist_cost.cu"}
+           "hist_cost": "csrc/hist_cost.cu", "dp_scan": "csrc/dp_scan.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC"]
@@ -274,9 +278,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.zt_hist_cost_smem_bytes.argtypes = []
         lib.zt_autotype_cost.restype = ci
         lib.zt_autotype_cost.argtypes = [vp] * 9 + [ci, i64, ci, vp]
+    elif name == "dp_scan":
+        lib.zt_dp_scan.restype = ci
+        lib.zt_dp_scan.argtypes = [vp] * 9 + [ci] * 3 + [vp]
     else:
         lib.zt_traceback.restype = ci
         lib.zt_traceback.argtypes = [vp] * 7 + [ci] * 4 + [vp]
+        lib.zt_traceback_large.restype = ci
+        lib.zt_traceback_large.argtypes = [vp] * 7 + [ci] * 4 + [vp]
         lib.zt_traceback_lanes_per_block.restype = ci
         lib.zt_traceback_lanes_per_block.argtypes = [ci]
         lib.zt_traceback_smem_bytes.restype = sz
@@ -361,11 +370,13 @@ def scan(bp_len, bp_dist, bp_dcost, litcost, lcost_vec, groups=1):
     lib = build_kernels()["scan"]
     ce = torch.empty((rows, nt), dtype=torch.int32, device=bp_len.device)
     cost = torch.empty((rows, nt), dtype=torch.float32, device=bp_len.device)
-    stream = torch.cuda.current_stream(bp_len.device).cuda_stream
-    raise_on(lib.zt_scan(
-        bp_len.data_ptr(), bp_dist.data_ptr(), bp_dcost.data_ptr(),
-        litcost.data_ptr(), lcost_vec.data_ptr(), ce.data_ptr(),
-        cost.data_ptr(), groups, rows // groups, kbp, nt, stream), "scan")
+    with torch.cuda.device(bp_len.device):
+        stream = torch.cuda.current_stream(bp_len.device).cuda_stream
+        raise_on(lib.zt_scan(
+            bp_len.data_ptr(), bp_dist.data_ptr(), bp_dcost.data_ptr(),
+            litcost.data_ptr(), lcost_vec.data_ptr(), ce.data_ptr(),
+            cost.data_ptr(), groups, rows // groups, kbp, nt, stream),
+            "scan")
     LAUNCHES["scan"] += 1
     return ce, cost
 
@@ -404,20 +415,22 @@ def traceback(ce, lit, tile_nbytes, symtab, groups=1):
             raise ValueError("traceback: inputs on different devices")
     len_bin, dist_bin = _device_bin_tables(symtab_h, ce.device)
     lib = build_kernels()["traceback"]
-    if lib.zt_traceback_lanes_per_block(rows // groups) == 0:
-        raise ValueError(f"traceback: a tile of {rows // groups} rows does "
-                         "not fit in one block's shared memory")
-    # The kernel writes every element of both outputs.
+    # A tile that fits one block's shared memory takes the staged kernel;
+    # a larger one the entry that walks ce in device memory.
+    name = ("traceback" if lib.zt_traceback_lanes_per_block(rows // groups)
+            else "traceback_large")
+    # Either entry writes every element of both outputs.
     hist = torch.empty((groups * HBINS, nt), dtype=torch.float32,
                        device=ce.device)
     pe = torch.empty((rows, nt), dtype=torch.int32, device=ce.device)
-    stream = torch.cuda.current_stream(ce.device).cuda_stream
-    raise_on(lib.zt_traceback(
-        ce.data_ptr(), lit.data_ptr(), tile_nbytes.data_ptr(),
-        len_bin.data_ptr(), dist_bin.data_ptr(), hist.data_ptr(),
-        pe.data_ptr(), groups, rows // groups, nt, DIST_TABLE, stream),
-        "traceback")
-    LAUNCHES["traceback"] += 1
+    with torch.cuda.device(ce.device):
+        stream = torch.cuda.current_stream(ce.device).cuda_stream
+        raise_on(getattr(lib, f"zt_{name}")(
+            ce.data_ptr(), lit.data_ptr(), tile_nbytes.data_ptr(),
+            len_bin.data_ptr(), dist_bin.data_ptr(), hist.data_ptr(),
+            pe.data_ptr(), groups, rows // groups, nt, DIST_TABLE, stream),
+            name)
+    LAUNCHES[name] += 1
     return hist, pe
 
 

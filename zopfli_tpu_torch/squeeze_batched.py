@@ -21,17 +21,18 @@ from .utils.logging import span
 
 
 def lz77_optimal_fused(data: np.ndarray, masters, numiterations: int,
-                       greedy_fn, device="cuda",
-                       trace=None) -> list[list[LZ77Store]]:
+                       greedy_fn, device="cuda", trace=None,
+                       devices=None) -> list[list[LZ77Store]]:
     """Fused-squeeze parses for a batch of masters.
 
     masters: list of (instart, inend, block_bounds).  The full iteration
     control (squeeze.c:446-526) runs on `device` (ops.fused_engine);
-    per-block final stores come back compacted.
+    per-block final stores come back compacted.  With `devices`, the
+    lane groups are sharded over them (the reference's mesh).
     Returns one list of LZ77Store per master, blocks in order.
     """
     fs, handle = fused_dispatch(data, masters, numiterations, greedy_fn,
-                                device=device)
+                                device=device, devices=devices)
     return fused_collect(fs, handle, numiterations, trace=trace)
 
 
@@ -50,14 +51,14 @@ def greedy_seed_stats(data: np.ndarray, block_bounds, greedy_fn):
 
 
 def fused_dispatch(data: np.ndarray, masters, numiterations: int,
-                   greedy_fn, device="cuda"):
+                   greedy_fn, device="cuda", devices=None):
     """Async half of lz77_optimal_fused: build + queue the device loop."""
     from .ops.fused_engine import FusedSqueeze
 
     if numiterations < 1:
         raise ValueError("numiterations must be >= 1")
 
-    fs = FusedSqueeze(data, masters, device=device)
+    fs = FusedSqueeze(data, masters, device=device, devices=devices)
     with span("zt.seed"):
         seed_ll, seed_d = greedy_seed_stats(data, fs.block_bounds, greedy_fn)
     return fs, fs.dispatch(seed_ll, seed_d, numiterations)
@@ -150,7 +151,7 @@ def devseed_fire(data: np.ndarray, ranges, maxblocks: int = 15,
 
 def devseed_dispatch(data: np.ndarray, ranges, numiterations: int,
                      maxblocks: int = 15, window_starts=None, fired=None,
-                     device="cuda"):
+                     device="cuda", devices=None):
     """Seed + split + squeeze-dispatch for a chunk of masters, no greedy.
 
     ranges: [(instart, inend)].  Per master, the seed program (ops.seed)
@@ -163,6 +164,8 @@ def devseed_dispatch(data: np.ndarray, ranges, numiterations: int,
     (multi-file batches concatenate independent inputs into one array).
     fired: optional result of devseed_fire (seed parses already queued,
     so the host could emit the previous chunk in between).
+    devices: optional list of devices to shard the squeeze's lane groups
+    over (the seed parses run on `device`).
 
     Returns an opaque entry for devseed_collect().
     """
@@ -196,7 +199,7 @@ def devseed_dispatch(data: np.ndarray, ranges, numiterations: int,
                    for i in live]
         cand = [(seeds[i].bp_len, seeds[i].bp_dist) for i in live]
         fs = fused_engine.FusedSqueeze(data, masters, device=device,
-                                       cand=cand,
+                                       devices=devices, cand=cand,
                                        window_starts=[window_starts[i]
                                                       for i in live])
         # Exact density prediction from the seed parse (pow2-bucketed).
