@@ -68,13 +68,17 @@ Phases, each printed as one JSON line:
      six of phase 6's images (pixels equal, K1 launched).
   8. oracle: the oracle block engine (ops.dp, ops.engine): dp_scan held
      bit-equal to its plain version (a real 2 x 4096 batch, a seeded
-     random case, the 16 KiB bucket) and timed at phase 3's largest
-     block bucket, the plain version timed at 16 KiB; block_pipeline on
+     random case, the 16 KiB bucket, costs on the 1/4-bit grid, zero
+     costs of both signs, phase 3's largest block in its bucket and 8
+     rows of 2^17 with different masks, the last two against the plain
+     version on the host) and timed at 16 KiB, at the largest block's
+     bucket and at 8 x 2^17, the plain version timed at 16 KiB; block_pipeline on
      8 rows of 2^17 bytes (also sharded over two entries of this card);
      deflate of phase 3's input through DeviceBlockEngine at
      ORACLE_ITERATIONS (round trip, <= 1.02 x native, no verify
      fallback); K2's large-tile entry bit-equal at a tile of 32,768 rows
-     (random paths at the loop's 256 lanes), and compress() at
+     (random paths at the loop's 256 lanes) and of 70,000 rows (2 groups
+     of 32 lanes), and compress() at
      ZT_TILE=32768 in a fresh process launching only that entry, which
      is held bit-equal and timed there on the loop's own K2 inputs.
   9. parallel: compress of 4 MiB of repo text (fused loop at
@@ -1344,11 +1348,16 @@ def _dp_inputs(engine, data, s, e, dev, ll=None, dd=None):
             lcost.contiguous(), eng._mask)
 
 
-def _dp_hold(dp, ins) -> tuple[bool, float]:
-    """dp_scan against its plain version on the same inputs."""
+def _dp_hold(dp, ins, plain_device=None) -> tuple[bool, float]:
+    """dp_scan against its plain version on the same inputs (copied to
+    `plain_device` first, if given: on the host the plain version's
+    per-position loop is several times faster for a long row)."""
     import torch
 
     k = dp.squeeze_scan(*ins)
+    if plain_device is not None:
+        ins = [t.to(plain_device) for t in ins]
+        k = [t.to(plain_device) for t in k]
     p = dp.squeeze_scan_plain(*ins)
     torch.cuda.synchronize()
     eq = (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
@@ -1431,14 +1440,17 @@ def phase_oracle(data, dev="cuda") -> dict:
     """The oracle block engine (ops.engine, ops.dp) and K2's large-tile
     entry on the card: dp_scan against its plain version (a real 2 x 4096
     batch under the fixed model, a seeded random case, the 16 KiB
-    bucket), its time on phase 3's largest block bucket and the plain
+    bucket, 1/4-bit-grid and signed-zero costs, phase 3's largest block
+    in its bucket, 8 rows of 2^17 with different masks), its times at 16
+    KiB, at the largest block's bucket and at 8 x 2^17, and the plain
     version's at 16 KiB; block_pipeline on 8 rows of 2^17 bytes (and
     sharded over two entries of this card); deflate of the 1 MiB input
     through DeviceBlockEngine (engine_factory of Options(engine="native"),
     ORACLE_ITERATIONS iterations): round trip, <= 1.02 x the native
     engine at the same iterations, no verify fallback, dp_scan launched;
     K2's large-tile entry against traceback_plain at a tile of 32,768
-    rows and 256 lanes on random paths, and compress() at ZT_TILE=32768
+    rows and 256 lanes and at a tile of 70,000 rows in 2 groups of 32
+    lanes, on random paths, and compress() at ZT_TILE=32768
     in a fresh process, with the entry held and timed there on that
     run's own K2 inputs."""
     import functools
@@ -1481,6 +1493,19 @@ def phase_oracle(data, dev="cuda") -> dict:
            np.arange(L)[None, :] < np.array([L, 2000, 0])[:, None]]
     checks["dp_random"], err_b = _dp_hold(
         dp, [torch.from_numpy(a).to(dev) for a in rnd])
+    # Costs on the 1/4-bit grid (many ties), and zero costs of both signs
+    # (-0.0 + -0.0 keeps its sign, -0.0 + 0.0 does not) on a 4096-byte
+    # block in its 16 KiB bucket (a masked tail of 12,288 positions).
+    ins_grid = _dp_inputs(
+        engine, data, 0, 16384, dev,
+        np.round(rng.uniform(1, 15, 288) * 4).astype(np.float32) / 4,
+        np.round(rng.uniform(1, 12, 32) * 4).astype(np.float32) / 4)
+    checks["dp_grid16k"], err_d = _dp_hold(dp, ins_grid)
+    ins_zero = _dp_inputs(
+        engine, data, 100_000, 104_096, dev,
+        np.where(rng.random(288) < 0.5, -0.0, 0.0).astype(np.float32),
+        np.where(rng.random(32) < 0.5, -0.0, 0.0).astype(np.float32))
+    checks["dp_signed_zeros"], err_e = _dp_hold(dp, ins_zero)
 
     # The 16 KiB bucket: bit-equality and the plain version's time.
     bounds = split_master(Options(engine="native"), data, 0, n,
@@ -1495,11 +1520,35 @@ def phase_oracle(data, dev="cuda") -> dict:
     b = int(np.argmax(sizes))
     insb = _dp_inputs(engine, data, int(bounds[b]), int(bounds[b + 1]), dev)
     outb = dp.squeeze_scan(*insb)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
     report["largest_block"] = {"bytes": int(sizes[b]),
                                "bucket": int(insb[0].shape[1])}
     report["dp_ms_largest"] = cuda_time_ms(lambda: dp.squeeze_scan(*insb),
                                            3)
-    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    # The whole largest row held (its masked tail included), the plain
+    # version on the host.
+    t0 = time.time()
+    checks["dp_largest_row"], err_f = _dp_hold(dp, insb, "cpu")
+    report["dp_plain_host_seconds_largest"] = time.time() - t0
+    # block_pipeline's shape, 8 rows of 2^17, with different masks (cut
+    # rows, all in the 2^17 bucket) and models (fixed, statistical).
+    rows8 = []
+    for i, cut in enumerate((PIPELINE_ROW, PIPELINE_ROW - 1, 126_000,
+                             110_000, 97_000, 80_000, 70_000, 65_537)):
+        model = (() if i % 2 == 0 else
+                 (rng.uniform(1, 15, 288).astype(np.float32),
+                  rng.uniform(1, 12, 32).astype(np.float32)))
+        rows8.append(_dp_inputs(engine, data, i * PIPELINE_ROW,
+                                i * PIPELINE_ROW + cut, dev, *model))
+    ins8 = [torch.cat([r[i] for r in rows8]) for i in range(6)]
+    del rows8
+    t0 = time.time()
+    checks["dp_b8_rows"], err_g = _dp_hold(dp, ins8, "cpu")
+    report["dp_plain_host_seconds_b8"] = time.time() - t0
+    report["dp_ms_b8"] = cuda_time_ms(lambda: dp.squeeze_scan(*ins8), 3)
+    report["dp_bound_ms_b8"], report["dp_bound_by_b8"] = _dp_bound(
+        ins8[0], nbytes(ins8), nbytes(dp.squeeze_scan(*ins8)))
+    del ins8
     report["dp_bound_ms_largest"], report["dp_bound_by_largest"] = \
         _dp_bound(insb[0], nbytes(insb), nbytes(outb))
     report["dp_bound_ms_16k"], report["dp_bound_by_16k"] = _dp_bound(
@@ -1580,6 +1629,24 @@ def phase_oracle(data, dev="cuda") -> dict:
     checks["traceback_large_entry_taken"] = (
         sk.LAUNCHES["traceback_large"] - before == 2)
     del ce_t, lit_t
+    # A tile past 65,535 rows (past the 16-bit positions of the staged
+    # entry), 2 groups of 32 lanes: random valid paths, then cut.
+    T2, L2, G2 = 70_000, 32, 2
+    pos2 = np.arange(1, T2 + 1)[:, None]
+    ce2 = []
+    for _ in range(G2):
+        ln2 = rng.integers(3, 259, (T2, L2))
+        ce2.append(np.where((rng.random((T2, L2)) < 0.6) | (ln2 > pos2), 1,
+                            ln2 | (rng.integers(1, 32769, (T2, L2)) << 9)))
+    ce_t = torch.from_numpy(np.concatenate(ce2).astype(np.int32)).to(dev)
+    lit_t = torch.from_numpy(rng.integers(0, 256, (G2 * T2, L2)).astype(
+        np.int32)).to(dev)
+    before = sk.LAUNCHES["traceback_large"]
+    checks["traceback_large_tile70000_g2"] = _traceback_cases(
+        sk, ce_t, lit_t, T2, rng, G2)
+    checks["traceback_large_entry_taken_70000"] = (
+        sk.LAUNCHES["traceback_large"] - before == 2)
+    del ce_t, lit_t, ce2
     # compress() at ZT_TILE=32768, and the entry held and timed on that
     # run's own K2 inputs.
     big = _large_tile_subprocess(raw)
@@ -1602,7 +1669,8 @@ def phase_oracle(data, dev="cuda") -> dict:
                     "source": "zopfli_tpu_torch/csrc/dp_scan.cu",
                     "replaces": sk.REPLACES["dp_scan"],
                     "launches": od["launches"]["dp_scan"],
-                    "max_abs_err": max(err_a, err_b, err_c),
+                    "max_abs_err": max(err_a, err_b, err_c, err_d, err_e,
+                                       err_f, err_g),
                     "ms": report["dp_ms_16k"],
                     "plain_ms": report["dp_plain_ms_16k"],
                     "bound_ms": report["dp_bound_ms_16k"],
@@ -1612,7 +1680,11 @@ def phase_oracle(data, dev="cuda") -> dict:
                         **report["largest_block"],
                         "ms": report["dp_ms_largest"],
                         "bound_ms": report["dp_bound_ms_largest"],
-                        "bound_by": report["dp_bound_by_largest"]}},
+                        "bound_by": report["dp_bound_by_largest"]},
+                    "b8_shape": {
+                        "B": 8, "L": PIPELINE_ROW, "ms": report["dp_ms_b8"],
+                        "bound_ms": report["dp_bound_ms_b8"],
+                        "bound_by": report["dp_bound_by_b8"]}},
         "traceback_large": {
             "name": "traceback_large", "route": "cuda",
             "source": "zopfli_tpu_torch/csrc/traceback.cu",

@@ -39,11 +39,36 @@
 //
 // Tiles that do not fit (lanes_per_block(tile) == 0: past 17,611 rows, or
 // past the 16-bit positions of the jump table) take the second entry,
-// zt_traceback_large, with the same contract.  It keeps nothing of a tile
-// in shared memory: pe is zeroed, one thread per lane walks ce in device
-// memory (one dependent load per path row) writing pe on its path, then a
-// sweep of 32 lanes x 8 rows per block counts the path rows of pe into
-// per-lane shared histograms.  Positions are 32-bit, so any tile works.
+// zt_traceback_large, with the same contract, in one launch.  A walk only
+// ever moves down the tile, so it needs only a window of rows, streamed
+// from the top:
+//
+// - A block of 8 warps takes 4 adjacent lanes of one group (a row's 16
+//   bytes) and streams their ce and lit from row tile-1 downwards in
+//   chunks of 512 rows through a ring of 4 stages with cp.async: while
+//   one chunk is walked and the one above it written, two more are in
+//   flight.  At G=1 and 256 lanes that is 64 blocks.
+// - One thread per lane walks its path inside the walked chunk in shared
+//   memory (one dependent shared-memory load per path row, not one
+//   device-memory load) and marks each row it visits with a byte store of
+//   its own, which nothing waits for; a walk that leaves the chunk goes on
+//   in the next one.  It stops where the Pallas cursor stops: on a row
+//   whose length is 0, past the tile's start, and at once when
+//   tile_nbytes > tile.
+// - Once every walk has left a chunk, the other seven warps write it, a
+//   row per thread: pe gets the edge on a marked row and 0 elsewhere
+//   (rows above a lane's start included) in one 16-byte store, so pe
+//   needs no zero fill; marked rows add their symbols to per-lane shared
+//   histograms with integer atomics (the same counts in any order), the
+//   row's bins looked up before any atomic so that the table loads
+//   overlap.  The histograms are written once, as float32.
+//
+// What bounds it is the slowest block: its longest walks (one dependent
+// shared-memory load per path row) and its writes, which overlap the next
+// chunk's walk (experiments/exp_oracle_kernels.py, -DZT_PHASE_CLOCKS).
+// It reads all of lit, coalesced, where the contract needs only the
+// path's literal rows: then a literal's bin is a shared-memory load.
+// Positions are 32-bit, so any tile works.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -208,75 +233,209 @@ traceback_kernel(const int* __restrict__ ce, const int* __restrict__ lit,
   }
 }
 
-// Large tiles, step 1: one thread per (group, lane) walks its path in
-// device memory and writes pe on it (pe was zeroed before).
-__global__ void __launch_bounds__(128)
-traceback_walk_kernel(const int* __restrict__ ce,
-                      const int* __restrict__ tile_nbytes,
-                      int* __restrict__ pe, int groups, int tile,
-                      int lanes) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= groups * lanes) return;
-  const int g = i / lanes, lane = i - g * lanes;
-  int p = tile_nbytes[i];
-  if (p > tile) p = 0;  // the Pallas cursor would never match a row
-  const size_t row0 = (size_t)g * tile;
-  while (p > 0) {
-    const size_t o = (row0 + p - 1) * lanes + lane;
-    const int v = ce[o];
-    pe[o] = v;
-    const int l = v & LEN_MASK;
-    if (l == 0) break;  // the cursor stays put: no later row matches
-    p -= l;             // past the tile's start: the walk ends
-  }
+// Large tiles: one block streams LG_LANES adjacent lanes of one group
+// from the tile's last row upwards, LG_C rows a chunk, through a ring of
+// LG_S stages of ce and lit (cp.async).  In iteration c, warp 0's first
+// lanes walk chunk c and warps 1..7 write chunk c-1, a row per thread.
+constexpr int LG_LANES = 4;      // a row's 16 bytes; its marks one word
+constexpr int LG_THREADS = 256;
+constexpr int LG_C = 512;        // rows per chunk
+constexpr int LG_S = 4;          // stages: write, walk, two in flight
+constexpr int LG_STAGE = LG_C * LG_LANES;
+constexpr int LG_WRITERS = LG_THREADS - 32;
+
+// The ring of ce and lit stages [S][2][C][LANES], the visit marks
+// [2][C][LANES] bytes (lane w's walk visits the row), the histograms
+// [LANES][HBINS].
+inline size_t lg_smem_bytes() {
+  return sizeof(int) *
+         ((size_t)LG_S * 2 * LG_STAGE + 2 * LG_C + LG_LANES * HBINS);
 }
 
-constexpr int SWEEP_LANES = 32;
-constexpr int SWEEP_ROWS = 8;
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
 
-// Large tiles, step 2: a block counts the path rows of 32 adjacent lanes
-// of one group (8 rows at a time, coalesced) into shared histograms.
-__global__ void __launch_bounds__(SWEEP_LANES * SWEEP_ROWS)
-traceback_sweep_kernel(const int* __restrict__ pe,
-                       const int* __restrict__ lit,
-                       const int* __restrict__ len_bin,
-                       const int* __restrict__ dist_bin,
-                       float* __restrict__ hist, int tile, int lanes,
-                       int ndist) {
-  __shared__ int sh[SWEEP_LANES * HBINS];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * SWEEP_LANES + tx;
-  const int lane = blockIdx.x * SWEEP_LANES + tx;
+// -DZT_PHASE_CLOCKS (experiments/exp_oracle_kernels.py): per block, the
+// clock64() cycles of the whole block, of warp 0's walks, of warp 1's
+// writes, the path rows lane 0 walked, and warp 0's and warp 1's cycles
+// at the two barriers of each chunk.
+#ifdef ZT_PHASE_CLOCKS
+constexpr int TB_DBG_BLOCKS = 1024;
+__device__ unsigned long long zt_tb_clocks[TB_DBG_BLOCKS][8];
+#define TCLK(x) const long long x = clock64()
+#define TCLK_ADD(v, t0) v += clock64() - (t0)
+#else
+#define TCLK(x)
+#define TCLK_ADD(v, t0)
+#endif
+
+__global__ void __launch_bounds__(LG_THREADS)
+traceback_stream_kernel(const int* __restrict__ ce,
+                        const int* __restrict__ lit,
+                        const int* __restrict__ tile_nbytes,
+                        const int* __restrict__ len_bin,
+                        const int* __restrict__ dist_bin,
+                        float* __restrict__ hist, int* __restrict__ pe,
+                        int tile, int lanes, int ndist, int vec) {
+  extern __shared__ __align__(16) int smem[];
+  int* ring = smem;                                      // [S][2][C][LANES]
+  unsigned* marks =
+      reinterpret_cast<unsigned*>(ring + LG_S * 2 * LG_STAGE);  // [2][C]
+  unsigned char* marks8 = reinterpret_cast<unsigned char*>(marks);
+  int* sh = reinterpret_cast<int*>(marks + 2 * LG_C);    // [LANES][HBINS]
+  const int tid = threadIdx.x;
+  const int lane0 = blockIdx.x * LG_LANES;
   const int g = blockIdx.y;
-  for (int i = tid; i < SWEEP_LANES * HBINS; i += SWEEP_LANES * SWEEP_ROWS)
-    sh[i] = 0;
-  __syncthreads();
-  if (lane < lanes) {
-    const size_t row0 = (size_t)g * tile;
-    int* mine = sh + tx * HBINS;
-    for (int r = ty; r < tile; r += SWEEP_ROWS) {
-      const size_t o = (row0 + r) * lanes + lane;
-      const int v = pe[o];
-      const int l = v & LEN_MASK;
-      if (l == 1) {
-        const int b = lit[o];
-        if (b >= 0 && b < HBINS) atomicAdd(mine + b, 1);
-      } else if (l >= 3) {
-        const int lb = __ldg(len_bin + l);
-        if (lb >= 0) atomicAdd(mine + lb, 1);
-        const int d = v >> LEN_BITS;
-        const int db = (d >= 0 && d < ndist) ? __ldg(dist_bin + d) : -1;
-        if (db >= 0) atomicAdd(mine + db, 1);
+  const int nl = min(LG_LANES, lanes - lane0);
+  const size_t row0 = (size_t)g * tile;
+  const int nch = (tile + LG_C - 1) / LG_C;
+#ifdef ZT_PHASE_CLOCKS
+  long long c_walk = 0, c_write = 0, c_bar = 0, steps = 0;
+#endif
+  TCLK(t_start);
+
+  for (int i = tid; i < 2 * LG_C; i += LG_THREADS) marks[i] = 0u;
+  for (int i = tid; i < LG_LANES * HBINS; i += LG_THREADS) sh[i] = 0;
+
+  // Chunk c holds rows [lo, hi) with hi = tile - c * LG_C.
+  auto load = [&](int c) {
+    const int hi = tile - c * LG_C, lo = max(0, hi - LG_C);
+    int* st = ring + (c % LG_S) * 2 * LG_STAGE;
+    if (vec) {  // a row of each array is one 16-byte copy
+      for (int i = tid; i < (hi - lo) * 2; i += LG_THREADS) {
+        const int r = i >> 1, a = i & 1;
+        cp16(st + a * LG_STAGE + r * LG_LANES,
+             (a ? lit : ce) + (row0 + lo + r) * lanes + lane0);
+      }
+    } else {
+      for (int i = tid; i < (hi - lo) * LG_LANES; i += LG_THREADS) {
+        const int r = i / LG_LANES, w = i % LG_LANES;
+        if (w < nl) {
+          const size_t o = (row0 + lo + r) * lanes + lane0 + w;
+          cp4(st + i, ce + o);
+          cp4(st + LG_STAGE + i, lit + o);
+        }
       }
     }
+  };
+  for (int c = 0; c < LG_S - 2; ++c) {
+    if (c < nch) load(c);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
   }
+
+  // The walk stops where the Pallas cursor stops: on a row whose edge has
+  // length 0, past the tile's start, or at once when tile_nbytes > tile.
+  int p = 0;
+  if (tid < nl) {
+    p = tile_nbytes[(size_t)g * lanes + lane0 + tid];
+    if (p > tile) p = 0;
+  }
+  for (int c = 0; c <= nch; ++c) {
+    TCLK(t_b0);
+    __syncthreads();  // the walk of c-1 and the writes of c-2 are done
+    TCLK_ADD(c_bar, t_b0);
+    if (c + LG_S - 2 < nch) load(c + LG_S - 2);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(LG_S - 2) : "memory");
+    TCLK(t_b1);
+    __syncthreads();  // chunk c has landed
+    TCLK_ADD(c_bar, t_b1);
+    TCLK(t_work);
+    if (tid < 32) {
+      if (c < nch && tid < nl) {
+        // One dependent shared-memory load per path row; the mark is a
+        // byte store of the lane's own, which nothing waits for.
+        // Row p-1 of the chunk at [p * LG_LANES] of both (one multiply-add
+        // per step).
+        const int hi = tile - c * LG_C, lo = max(0, hi - LG_C);
+        const int* st =
+            ring + (c % LG_S) * 2 * LG_STAGE + tid - (lo + 1) * LG_LANES;
+        unsigned char* mk =
+            marks8 + (c & 1) * LG_C * LG_LANES + tid - (lo + 1) * LG_LANES;
+        while (p > lo) {
+          const int v = st[p * LG_LANES];
+          mk[p * LG_LANES] = 1;
+          const int l = v & LEN_MASK;
+          p = l == 0 ? 0 : p - l;
+#ifdef ZT_PHASE_CLOCKS
+          ++steps;
+#endif
+        }
+      }
+      __syncwarp();
+      TCLK_ADD(c_walk, t_work);
+    } else if (c >= 1) {
+      // Chunk c-1, a row per thread: pe (the edge on visited rows, 0
+      // elsewhere), then the visited rows' symbols into the histograms.
+      const int c1 = c - 1;
+      const int hi = tile - c1 * LG_C, lo = max(0, hi - LG_C);
+      const int* st = ring + (c1 % LG_S) * 2 * LG_STAGE;
+      unsigned* mk = marks + (c1 & 1) * LG_C;
+      for (int r = tid - 32; r < hi - lo; r += LG_WRITERS) {
+        const unsigned m = mk[r];
+        mk[r] = 0u;  // the walk of chunk c+1 reuses the marks
+        const int4 a = *reinterpret_cast<const int4*>(st + r * LG_LANES);
+        int v[LG_LANES] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int w = 0; w < LG_LANES; ++w) v[w] = (m >> (8 * w)) & 1u ? v[w] : 0;
+        int* po = pe + (row0 + lo + r) * lanes + lane0;
+        if (vec) {
+          *reinterpret_cast<int4*>(po) = make_int4(v[0], v[1], v[2], v[3]);
+        } else {
+#pragma unroll
+          for (int w = 0; w < LG_LANES; ++w)
+            if (w < nl) po[w] = v[w];
+        }
+        if (m == 0u) continue;
+        // Every bin first (the table loads overlap), then the atomics.
+        int b0[LG_LANES], b1[LG_LANES];
+        const int* sl = st + LG_STAGE + r * LG_LANES;
+#pragma unroll
+        for (int w = 0; w < LG_LANES; ++w) {
+          const int l = v[w] & LEN_MASK;
+          const int d = v[w] >> LEN_BITS;
+          const int lb = sl[w];
+          b0[w] = l == 1 ? (lb >= 0 && lb < HBINS ? lb : -1)
+                         : l >= 3 ? __ldg(len_bin + l) : -1;
+          b1[w] = l >= 3 && d >= 0 && d < ndist ? __ldg(dist_bin + d) : -1;
+        }
+#pragma unroll
+        for (int w = 0; w < LG_LANES; ++w) {
+          if (b0[w] >= 0) atomicAdd(sh + w * HBINS + b0[w], 1);
+          if (b1[w] >= 0) atomicAdd(sh + w * HBINS + b1[w], 1);
+        }
+      }
+      TCLK_ADD(c_write, t_work);
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-  for (int i = tid; i < SWEEP_LANES * HBINS; i += SWEEP_LANES * SWEEP_ROWS) {
-    const int b = i / SWEEP_LANES, w = i - b * SWEEP_LANES;
-    const int ln = blockIdx.x * SWEEP_LANES + w;
-    if (ln < lanes)
-      hist[((size_t)g * HBINS + b) * lanes + ln] = (float)sh[w * HBINS + b];
+  for (int i = tid; i < HBINS * LG_LANES; i += LG_THREADS) {
+    const int b = i / LG_LANES, w = i % LG_LANES;
+    if (w < nl)
+      hist[((size_t)g * HBINS + b) * lanes + lane0 + w] =
+          (float)sh[w * HBINS + b];
   }
+#ifdef ZT_PHASE_CLOCKS
+  const int blk = blockIdx.y * gridDim.x + blockIdx.x;
+  if (blk < TB_DBG_BLOCKS) {
+    unsigned long long* d = zt_tb_clocks[blk];
+    if (tid == 0) {
+      d[0] = clock64() - t_start;
+      d[1] = c_walk;
+      d[3] = steps;
+      d[4] = c_bar;
+    }
+    if (tid == 32) {
+      d[2] = c_write;
+      d[5] = c_bar;
+    }
+  }
+#endif
 }
 
 }  // namespace
@@ -322,19 +481,27 @@ extern "C" int zt_traceback_large(const void* ce, const void* lit,
                                   int lanes, int ndist, void* stream) {
   if (tile <= 0 || lanes <= 0 || groups <= 0 || ndist <= 0)
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(
-      pe, 0, sizeof(int) * (size_t)groups * tile * lanes, st);
+  const size_t smem = lg_smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      traceback_stream_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int walkers = groups * lanes;
-  traceback_walk_kernel<<<(walkers + 127) / 128, 128, 0, st>>>(
-      (const int*)ce, (const int*)tile_nbytes, (int*)pe, groups, tile,
-      lanes);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((lanes + SWEEP_LANES - 1) / SWEEP_LANES, groups);
-  traceback_sweep_kernel<<<grid, dim3(SWEEP_LANES, SWEEP_ROWS), 0, st>>>(
-      (const int*)pe, (const int*)lit, (const int*)len_bin,
-      (const int*)dist_bin, (float*)hist, tile, lanes, ndist);
+  // 16-byte copies and stores need 16-byte aligned rows of whole blocks
+  // of 4 lanes.
+  const int vec = lanes % 4 == 0 &&
+                  (((uintptr_t)ce | (uintptr_t)lit | (uintptr_t)pe) & 15) == 0;
+  const dim3 grid((lanes + LG_LANES - 1) / LG_LANES, groups);
+  traceback_stream_kernel<<<grid, LG_THREADS, smem, (cudaStream_t)stream>>>(
+      (const int*)ce, (const int*)lit, (const int*)tile_nbytes,
+      (const int*)len_bin, (const int*)dist_bin, (float*)hist, (int*)pe,
+      tile, lanes, ndist, vec);
   return (int)cudaGetLastError();
 }
+
+#ifdef ZT_PHASE_CLOCKS
+// The large-tile entry's clocks of blocks 0..n-1 (n <= 1024), 8 words each.
+extern "C" int zt_traceback_debug_read(void* out, int n) {
+  return (int)cudaMemcpyFromSymbol(
+      out, zt_tb_clocks, sizeof(unsigned long long) * 8 * (size_t)n);
+}
+#endif

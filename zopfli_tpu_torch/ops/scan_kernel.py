@@ -416,7 +416,7 @@ def traceback(ce, lit, tile_nbytes, symtab, groups=1):
     len_bin, dist_bin = _device_bin_tables(symtab_h, ce.device)
     lib = build_kernels()["traceback"]
     # A tile that fits one block's shared memory takes the staged kernel;
-    # a larger one the entry that walks ce in device memory.
+    # a larger one the entry that streams the tile in chunks.
     name = ("traceback" if lib.zt_traceback_lanes_per_block(rows // groups)
             else "traceback_large")
     # Either entry writes every element of both outputs.
