@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only kernels # build + kernel checks only
     python3 chip_smoke.py --only oracle  # build + phase 8 only
     python3 chip_smoke.py --only parallel  # build + phase 9 only
+    python3 chip_smoke.py --only mega      # build + phase mega only
 
 Phases, each printed as one JSON line:
   1. environment: the card's name and power limit, the kernels' build.
@@ -31,7 +32,16 @@ Phases, each printed as one JSON line:
          breakpoints, odd tiles and lane counts, cut paths).
      Outputs must be bit-equal, and one warm scan + traceback pair must
      not sync the stream.  The device split of the seed parse must equal
-     the host splitter on the same stream.  Times are CUDA-event means
+     the host splitter on the same stream.  autotype_cost's device-count
+     entry must equal its host-count entry and plain version on the same
+     ranges.  The split under device control (split_step + that entry,
+     queued without a sync and checked under
+     torch.cuda.set_sync_debug_mode("error")) must give the host-
+     controlled split on the seed parse, a squeeze's output stream and
+     synthetic streams (under 10 and under 1000 symbols, linear rounds
+     only, 200,000 random symbols), and split_step must equal
+     split_step_plain step by step there; its time per launch comes from
+     torch.profiler.  Times are CUDA-event means
      over warm launches (for the two cost kernels, `ms` is of launches
      captured in a CUDA graph, so that their Python wrapper is out of
      the time, and `ms_eager` of eager calls back to back).
@@ -42,6 +52,13 @@ Phases, each printed as one JSON line:
      round, call no host greedy parse, fall back to
      the host engine for no block, and stay within 2% of the native
      engine's size.  One warm ZT_SEED=greedy run is timed beside it.
+  mega: ZT_MEGA=1 at 1 MiB (G=1, nb_pad 64) and 2 MiB at
+     ZT_MASTER_SIZE=2097152 (MB 32, G=2, nb_pad 128), each beside the
+     default two-phase path in turns: bytes equal, zlib round trip, no
+     verify fallback, per-block best costs equal to FusedSqueeze's on the
+     same seed, mega_dispatch under set_sync_debug_mode("error"), K1/K2
+     15 + 1 launches, split_step 2*N_MAX, autotype_cost 2*N_MAX + 2 and
+     no host-controlled split round; warm walls of both paths.
   4. profile: one more default compress under torch.profiler -- host
      time per pipeline stage, device time per kernel, the device's idle
      share.  It fails only if the profiler fails or sees no device time.
@@ -87,8 +104,9 @@ Phases, each printed as one JSON line:
      compress_multihost in a world-size-1 gloo group (bytes equal to
      compress), and two processes on this card in a gloo group (2.1 MB,
      --i2; rank 0's bytes equal to the single-process ones).
-Then a `kernels` JSON line (with phase 3's launches, phase 6's in
-`launches_png`, for K1 and K2 phase 6's check at its shape in
+Then a `kernels` JSON line (with phase 3's launches -- split_step's
+from phase mega, whose launches every entry has in `launches_mega` --,
+phase 6's in `launches_png`, for K1 and K2 phase 6's check at its shape in
 `png_shape` and phase 9's at G=4 in `g4_shape`; dp_scan with the
 launches of phase 8's deflate, the large-tile traceback entry with those
 of its ZT_TILE=32768 run), and last {"ok": true, "device": {...}}.
@@ -367,6 +385,7 @@ def _hold_k1k2(inputs, lit, nbytes, symtab, G, plain_reps):
 
 def phase_kernels(data, dev="cuda"):
     """Each kernel against its plain version at production shapes."""
+    import numpy as np
     import torch
 
     from zopfli_tpu_torch import native
@@ -408,7 +427,10 @@ def phase_kernels(data, dev="cuda"):
     checks["no_sync"] = True
 
     checks.update(_case_checks(dev))
-    seed_report, seed_checks, k3s = _seed_checks(data, dev)
+    # A second split's stream: the squeeze's parse after two iterations.
+    parses = fs.run(seed_ll, seed_d, 2)[0]
+    second = tuple(np.concatenate([p[i] for p in parses]) for i in (0, 1))
+    seed_report, seed_checks, k3s = _seed_checks(data, dev, second)
     checks.update(seed_checks)
     ok = all(checks.values())
     emit({"phase": "kernels", "ok": ok, "bit_equal": checks,
@@ -477,9 +499,11 @@ def _hist_edge_batch(rng, B):
     return ll, d
 
 
-def _seed_checks(data, dev):
-    """The seed program's kernels on its real inputs, hist_cost, and the
-    device split against the host splitter on the seed parse."""
+def _seed_checks(data, dev, second):
+    """The seed program's kernels on its real inputs, hist_cost, the
+    device split against the host splitter on the seed parse, and the
+    split under device control on it, on `second` (a squeeze's output
+    stream, what the second split searches) and on synthetic streams."""
     import numpy as np
     import torch
 
@@ -557,6 +581,7 @@ def _seed_checks(data, dev):
     report["split_points"] = sp[:npts]
     checks["device_split_vs_host"] = sp[:npts] == host
 
+
     # K3 on the seed's per-block histograms, one batch of split-probe
     # histograms (FindMinimum's first round over the whole stream, with
     # the segment's own cost), and seeded random batches.
@@ -611,7 +636,20 @@ def _seed_checks(data, dev):
         {"probe_19": k3_sets["probe_batch"],
          "seed_blocks": k3_sets["seed_blocks"],
          "random_2048": k3_sets["random_2048"]}, sk, checks)
-    return report, checks, {"hist_cost": k3, "autotype_cost": at}
+
+    # The split under device control (the mega path's), on the seed
+    # parse, on a second split's stream and on synthetic streams.
+    streams = {"seed_parse": (parsed[0], parsed[1], core.DCAP, nsym)}
+    for name, (lit, dist) in [("second_split", second)] + list(
+            _synthetic_streams(np.random.default_rng(17)).items()):
+        ll, dd, ncap, n = _pad_stream(lit, dist)
+        streams[name] = (torch.from_numpy(ll).to(dev),
+                         torch.from_numpy(dd).to(dev), ncap, n)
+    chain_checks, chain = _split_chain_checks(streams, mb, dev)
+    checks.update(chain_checks)
+    report["split_chain"] = chain["report"]
+    return report, checks, {"hist_cost": k3, "autotype_cost": at,
+                            "split_step": chain["entry"]}
 
 
 def _range_hists(devsplit, tabs, a, b, ncap):
@@ -685,6 +723,7 @@ def _autotype_checks(devsplit, sk, tabs, rounds, ncap, nsym, dev):
                                              small)
         checks[f"autotype_cost_{name}"] = torch.equal(got, want)
         err = max(err, float((got - want).abs().max()))
+    checks.update(_autotype_dev_checks(devsplit, tabs, sets, ncap, dev))
 
     a, b, small = rounds[0]
     ab = torch.from_numpy(np.stack([a, b]).astype(np.int64)).to(dev)
@@ -728,6 +767,281 @@ def _autotype_checks(devsplit, sk, tabs, rounds, ncap, nsym, dev):
              "bound_ms": bound, "bound_by": by, "library_ms": None,
              "rows": len(a)}
     return entry, checks, report
+
+
+def _autotype_dev_checks(devsplit, tabs, sets, ncap, dev) -> dict:
+    """autotype_cost's device-count entry (the count read on the card, the
+    grid sized for MAX_RANGES) bit-equal to the host-count entry and to
+    the plain version on the same ranges, padded past the count with
+    ranges that must stay untouched."""
+    import numpy as np
+    import torch
+
+    checks = {}
+    R = devsplit.MAX_RANGES
+    for name, (a, b, small) in sets.items():
+        n = len(a)
+        if n > R:
+            continue
+        gate = (small if isinstance(small, torch.Tensor)
+                else torch.full((n,), bool(small), device=dev))
+        starts = torch.zeros(R, dtype=torch.int64, device=dev)
+        ends = torch.zeros(R, dtype=torch.int64, device=dev)
+        rows = torch.zeros(R, dtype=torch.bool, device=dev)
+        starts[:n] = torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+        ends[:n] = torch.from_numpy(np.asarray(b, np.int64)).to(dev)
+        rows[:n] = gate
+        state = torch.zeros(devsplit.S_HEAD + 1, dtype=torch.int64,
+                            device=dev)
+        state[devsplit.S_COUNT] = n
+        costs = torch.full((R,), -7, dtype=torch.int64, device=dev)
+        devsplit.autotype_costs_counted(tabs, starts, ends, rows, state,
+                                        costs, ncap)
+        host = devsplit.autotype_costs(*tabs, starts[:n], ends[:n], ncap,
+                                       rows[:n].contiguous())
+        plain = devsplit.autotype_costs_plain(*tabs, starts[:n], ends[:n],
+                                              ncap, rows[:n])
+        checks[f"autotype_dev_{name}"] = (
+            torch.equal(costs[:n], host) and torch.equal(host, plain)
+            and bool((costs[n:] == -7).all()))
+    return checks
+
+
+def _pad_stream(lit, dist, floor: int = 1024):
+    """(litlens, dists, ncap, nsym) of a host stream, as the device split
+    pads it (block_split_lz77_device_dispatch)."""
+    import numpy as np
+
+    n = len(lit)
+    ncap = floor
+    while ncap < n + 1:
+        ncap *= 2
+    ll = np.zeros(ncap, np.int32)
+    dd = np.zeros(ncap, np.int32)
+    ll[:n] = lit
+    dd[:n] = dist
+    return ll, dd, ncap, n
+
+
+def _synthetic_streams(rng) -> dict:
+    """Host (litlens, dists) streams for the split chain: fewer than 10
+    symbols, at most 1000 (the fixed-cost gate on), segments short enough
+    for linear rounds only, and a long stream of random matches and
+    literals (probe rounds)."""
+    import numpy as np
+
+    def stream(n, p_match, max_len=258):
+        is_m = rng.random(n) < p_match
+        lit = np.where(is_m, rng.integers(3, max_len + 1, n),
+                       rng.integers(0, 256, n))
+        dist = np.where(is_m, rng.integers(1, 32769, n), 0)
+        return lit.astype(np.uint16), dist.astype(np.uint16)
+
+    blocks_ = [stream(300, 0.05), stream(400, 0.6, 20), stream(300, 0.2)]
+    short = tuple(np.concatenate(p) for p in zip(*blocks_))
+    return {"under_10": stream(7, 0.3), "under_1000": stream(900, 0.3),
+            "linear_only": short,
+            "long_random": stream(200_000, 0.35)}
+
+
+def _split_chain_checks(streams: dict, mb: int, dev) -> tuple[dict, dict]:
+    """The split chain (zt_split_step + autotype_cost's device-count
+    entry, queued without a sync) against the host-controlled split on
+    each stream, and the kernel held against split_step_plain step by
+    step (the plain step applied to each step's input state and costs).
+    The whole plain chain (plain costs on the host) is held too where
+    the stream is short.  Per-launch device times from torch.profiler."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zopfli_tpu_torch.ops import devsplit
+    from zopfli_tpu_torch.ops import scan_kernel as sk
+
+    checks, report = {}, {}
+    for name, (lit_t, dist_t, ncap, nsym) in streams.items():
+        nsym_t = torch.tensor(nsym, dtype=torch.int64, device=dev)
+        sp_h, npts_h = devsplit.split_lz77_device(lit_t, dist_t, ncap, mb,
+                                                  nsym)
+        host = [int(x) for x in sp_h[:npts_h]]
+        tabs = _split_tabs(devsplit, lit_t, dist_t, ncap, nsym_t)
+        # Step by step: the kernel's state and round against the plain
+        # step's on the same input state and costs.
+        R = devsplit.MAX_RANGES
+        st = devsplit.split_state(mb, ncap, dev)
+        costs, starts, ends = (torch.zeros(R, dtype=torch.int64,
+                                           device=dev) for _ in range(3))
+        rows = torch.zeros(R, dtype=torch.bool, device=dev)
+        steps = devsplit.n_max(mb, ncap)
+        same, used, sizes, step_bytes = True, 0, [], []
+        for k in range(steps):
+            pst, pcost, ps, pe, pr = (t.to("cpu", copy=True) for t in (
+                st, costs, starts, ends, rows))
+            devsplit.split_step(st, nsym_t, costs, starts, ends, rows, mb,
+                                ncap, k == steps - 1)
+            before = pst.clone()
+            devsplit.split_step_plain(pst, nsym, pcost, ps, pe, pr, mb,
+                                      ncap, k == steps - 1)
+            step_bytes.append(_split_step_bytes(devsplit, before, pst))
+            c = int(pst[devsplit.S_COUNT])
+            if c:
+                sizes.append(c)
+            same &= (torch.equal(st.cpu(), pst)
+                     and torch.equal(starts[:c].cpu(), ps[:c])
+                     and torch.equal(ends[:c].cpu(), pe[:c])
+                     and torch.equal(rows[:c].cpu(), pr[:c]))
+            devsplit.autotype_costs_counted(tabs, starts, ends, rows, st,
+                                            costs, ncap)
+            used = k + 1
+            if pst[devsplit.S_FINISHED] and k + 1 < steps:
+                # One step past the end must do nothing.
+                pst = st.to("cpu", copy=True)
+                devsplit.split_step(st, nsym_t, costs, starts, ends, rows,
+                                    mb, ncap, False)
+                pst[devsplit.S_COUNT] = 0
+                same &= torch.equal(st.cpu(), pst)
+                break
+        checks[f"split_step_vs_plain_{name}"] = bool(same)
+        # The chain as the mega path queues it: no sync inside.
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sp, npts, fin = devsplit.split_lz77_resident(
+                lit_t, dist_t, ncap, mb, nsym_t, return_state=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        got = [int(x) for x in sp[:int(npts)].cpu()]
+        checks[f"split_chain_vs_host_{name}"] = (
+            got == host and int(fin[devsplit.S_OVERFLOW]) == 0)
+        r = {"symbols": nsym, "ncap": ncap, "split_points": got,
+             "rounds": int(fin[devsplit.S_ROUNDS]), "steps": steps,
+             "steps_checked": used, "round_sizes": sizes,
+             "step_bytes_until_finished": sum(step_bytes)}
+        if nsym <= 1000:
+            cpu = tuple(t.cpu() for t in tabs)
+            pfin = devsplit.split_chain(cpu, torch.tensor(nsym), ncap, mb)
+            checks[f"split_chain_plain_{name}"] = torch.equal(
+                pfin[devsplit.S_HEAD:], fin[devsplit.S_HEAD:].cpu())
+        report[name] = r
+
+    # Times on the first stream (the seed parse): the chain's wall with
+    # its enqueue, and each kernel's device time per launch.
+    name = next(iter(streams))
+    lit_t, dist_t, ncap, nsym = streams[name]
+    nsym_t = torch.tensor(nsym, dtype=torch.int64, device=dev)
+    chain = lambda: devsplit.split_lz77_resident(lit_t, dist_t, ncap, mb,
+                                                 nsym_t, return_state=True)
+    chain_ms = cuda_time_ms(chain, reps=3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fin = chain()[2]
+        torch.cuda.synchronize()
+    step_us = [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and "split_step" in e.name]
+    cost_us = [e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA
+               and "autotype_cost" in e.name]
+    rounds = int(fin[devsplit.S_ROUNDS])
+    # The plain step on the card's tensors (it reads the state to the
+    # host each step), over the same chain.
+    st = devsplit.split_state(mb, ncap, dev)
+    R = devsplit.MAX_RANGES
+    costs, starts, ends = (torch.zeros(R, dtype=torch.int64, device=dev)
+                           for _ in range(3))
+    rows = torch.zeros(R, dtype=torch.bool, device=dev)
+    tabs = _split_tabs(devsplit, lit_t, dist_t, ncap, nsym_t)
+    plain_s, nplain = 0.0, 0
+    while not int(st[devsplit.S_FINISHED]):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        devsplit.split_step_plain(st, nsym_t, costs, starts, ends, rows, mb,
+                                  ncap, False)
+        torch.cuda.synchronize()
+        plain_s += time.time() - t0
+        nplain += 1
+        devsplit.autotype_costs_counted(tabs, starts, ends, rows, st, costs,
+                                        ncap)
+    plain_ms = plain_s * 1e3 / nplain
+    # Bytes of the chain's launches: each step up to the one that
+    # finished the search as the plain step's trace counts them, then 8
+    # a step (the finished flag).
+    used = report[name]["steps_checked"]
+    nbytes_ = (report[name]["step_bytes_until_finished"]
+               + 8 * (len(step_us) - used))
+    bound, by = bytes_bound(nbytes_ / max(len(step_us), 1), 0)
+    report[name].update({
+        "chain_ms": chain_ms, "chain_launches": len(step_us) + len(cost_us),
+        "split_step_device_us_total": sum(step_us),
+        "split_step_us_active": (sum(step_us[:rounds + 1])
+                                 / max(rounds + 1, 1)),
+        "split_step_us_idle": (sum(step_us[rounds + 1:])
+                               / max(len(step_us) - rounds - 1, 1)),
+        "autotype_dev_us_total": sum(cost_us),
+        "autotype_dev_us_idle": (sum(cost_us[rounds:])
+                                 / max(len(cost_us) - rounds, 1))})
+    entry = {"name": "split_step", "route": "cuda",
+             "source": "zopfli_tpu_torch/csrc/split_ctl.cu",
+             "replaces": sk.REPLACES["split_step"], "max_abs_err": 0.0,
+             "ms": sum(step_us) / max(len(step_us), 1) / 1e3,
+             "ms_active": report[name]["split_step_us_active"] / 1e3,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+             "library_ms": None, "steps": len(step_us), "rounds": rounds}
+    if not all(checks.values()):
+        entry["max_abs_err"] = None
+    return checks, {"report": report, "entry": entry}
+
+
+def _split_step_bytes(devsplit, before, after) -> int:
+    """Least bytes one split step moves, from the plain step's input and
+    output state: nsym, the head fields whose old values the step needs,
+    sp[:npts] and done[:ndone] where it picks the next segment, the
+    costs of the round it consumes, the state entries it changes (each
+    written once) and the next round's ranges (int64 start and end, a
+    bool gate).  A step after the search finished reads its flag alone.
+    Where the trace cannot tell whether a field was read (S_POS after a
+    probe round that did not improve), it is not counted."""
+    d = devsplit
+    b, a = before.tolist(), after.tolist()
+    if b[d.S_FINISHED]:
+        return 8
+    mode = b[d.S_MODE]
+    decided = a[d.S_IT] > b[d.S_IT]      # FindMinimum ended this step
+    reads = {d.S_FINISHED, d.S_MODE}
+    ncost = 0
+    if mode == d.M_LINEAR:
+        reads |= {d.S_NLIN, d.S_LSTART, d.S_LEND}
+        ncost = 2 * b[d.S_NLIN] + 1
+    elif mode == d.M_PROBE:
+        reads |= {d.S_START, d.S_END, d.S_NLIN, d.S_LASTBEST, d.S_LSTART,
+                  d.S_LEND}
+        ncost = 2 * d.NUM + (b[d.S_NLIN] == 0)
+        if decided and b[d.S_NLIN]:
+            reads.add(d.S_ORIG)
+    listed = 0
+    if decided:
+        reads.add(d.S_IT)
+        reads |= ({d.S_NPTS, d.S_NUMBLOCKS} if a[d.S_NPTS] > b[d.S_NPTS]
+                  else {d.S_NDONE})
+    if decided or mode == d.M_SELECT:   # the next segment is picked
+        reads |= {d.S_IT, d.S_NPTS, d.S_NDONE}
+        if not a[d.S_FINISHED]:
+            reads.add(d.S_NUMBLOCKS)
+        listed = b[d.S_NPTS] + b[d.S_NDONE]
+    if a[d.S_COUNT]:
+        reads.add(d.S_ROUNDS)
+    changed = sum(x != y for x, y in zip(b, a))
+    return (8 + 8 * (len(reads) + listed + ncost + changed)
+            + 17 * a[d.S_COUNT])
+
+
+def _split_tabs(devsplit, lit_t, dist_t, ncap, nsym_t):
+    """(ll_ck, d_ck, ll_sym, d_sym, bcum) of a padded stream."""
+    ll_sym, d_sym, nb = devsplit.stream_symbols(lit_t, dist_t, ncap, nsym_t)
+    ll_ck, d_ck, bcum = devsplit.checkpoints(ll_sym, d_sym, nb, ncap, nsym_t)
+    return ll_ck, d_ck, ll_sym, d_sym, bcum
 
 
 def _autotype_bound(devsplit, tabs, a, b, ncap) -> tuple[float, str]:
@@ -1015,6 +1329,187 @@ def phase_main(data, dev="cuda"):
     if not ok:
         raise RuntimeError("main path check failed")
     return runs[1]["launches"], outs[0]
+
+
+# (name, input, ZT_MASTER_SIZE, ZT_REPLICAS): "wide" is 84,000 bytes in
+# 15 blocks of one tile each, so 5 replicas a block give 90 lane blocks:
+# rows past the 64 the JAX program's stream key holds (some blocks' best
+# parse comes from one), at a shape where the two-phase path has the
+# same lane count.
+MEGA_CASES = (("1mib", MIB, None, None), ("2mib", 2 * MIB, str(2 * MIB), None),
+              ("wide", 84_000, None, "5"))
+
+
+def _wide_bytes(pieces: int = 14, size: int = 6000) -> bytes:
+    """Slices of the JAX package's source (which does not change) between
+    runs of small alphabets, one piece per block of the seed split."""
+    import numpy as np
+
+    rng = np.random.default_rng(64)
+    paths = [p for p in corpus_paths() if not p.endswith(".md")]
+    blob = b"".join(open(p, "rb").read() for p in paths)
+    text = np.frombuffer(blob[:pieces * size], np.uint8)
+    out = []
+    for i in range(pieces):
+        if i % 2 == 0:
+            out.append(text[i * size:(i + 1) * size])
+        else:
+            out.append((16 * (i % 16) + rng.integers(0, 4 + i % 5, size))
+                       .astype(np.uint8))
+    return np.concatenate(out).tobytes()
+
+
+def _env(name: str, value):
+    """Set (or with None, unset) an environment variable; returns a
+    function that restores it."""
+    old = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+    def restore():
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+    return restore
+
+
+def _mega_case(raw: bytes, dev) -> dict:
+    """One input through the two-phase path and the megafused one: bytes,
+    launches, per-block costs, the sync check, warm walls in turns."""
+    import numpy as np
+    import torch
+
+    from zopfli_tpu_torch import squeeze_batched
+    from zopfli_tpu_torch.deflate import Options, scaled_maxblocks
+    from zopfli_tpu_torch.ops import devsplit, fused_engine, mega, seed
+
+    arr = np.frombuffer(raw, np.uint8)
+    n = len(arr)
+    mb = scaled_maxblocks(Options(), n)
+    runs, outs = {}, {}
+    for label, flag in (("two_phase_cold", "0"), ("mega_cold", "1"),
+                        ("mega", "1"), ("two_phase", "0"),
+                        ("mega_2", "1"), ("two_phase_2", "0")):
+        restore = _env("ZT_MEGA", flag)
+        try:
+            runs[label], outs[label] = _compress_run(raw, label, dev)
+        finally:
+            restore()
+    m = runs["mega"]
+    cap = 16384
+    while cap < n:
+        cap *= 2
+    steps = devsplit.n_max(mb, cap + devsplit.CKPT)
+    ln = m["launches"]
+    launches_ok = (ln["scan"] == ln["traceback"] == ITERATIONS + 1
+                   and ln["hist_cost"] > 0
+                   and ln["split_step"] == 2 * steps
+                   and ln["autotype_cost"] == 2 * steps + 2
+                   and m["split"]["rounds"] == 0
+                   and m["split"]["syncs"] == 0
+                   and m["seed_programs"] == 1)
+
+    # Per-block best costs against the two-phase FusedSqueeze's on the
+    # same seed (tests_tpu/test_on_tpu.py's check).
+    sr = seed.seed_master(arr, 0, n, mb, device=dev)
+    fs = fused_engine.FusedSqueeze(arr, [(0, n, sr.bounds)], device=dev,
+                                   cand=[(sr.bp_len, sr.bp_dist)])
+    _, cost_two, _, _ = fs.collect(fs.dispatch(sr.seed_ll, sr.seed_d,
+                                               ITERATIONS))
+    # The dispatch must not read the device.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.time()
+        handle = mega.mega_dispatch(arr, 0, n, mb, ITERATIONS, device=dev)
+        enqueue = time.time() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    t0 = time.time()
+    mr = mega.mega_finish(handle)
+    pull = time.time() - t0
+    _, cost_mega, _, _ = mr.collect()
+    G, nb_pad = mega.lane_geometry(cap, mb, int(os.environ.get(
+        "ZT_REPLICAS", "2")))
+    # Lane blocks past 64 that carry tiles, and blocks whose best parse
+    # came from one of them.
+    used = mr.tile_block[mr.tile_nbytes > 0]
+    best = list(range(mr.nb))
+    for rb in range(mr.nb, mr.nb_total):
+        b = int(mr.replica_of[rb])
+        if mr._cost[rb] < mr._cost[best[b]]:
+            best[b] = rb
+    checks = {
+        "bytes_equal": (outs["mega"] == outs["two_phase"]
+                        == outs["mega_cold"] == outs["mega_2"]),
+        "roundtrip": all(r["roundtrip"] for r in runs.values()),
+        "no_verify_fallback": all(r["verify_fails"] == 0
+                                  for r in runs.values()),
+        "launches": launches_ok,
+        "bounds_equal": mr.bounds == sr.bounds,
+        "block_costs_equal": bool(np.array_equal(cost_two, cost_mega)),
+        "dispatch_no_sync": True,
+        "fs_same_geometry": fs.ngroups == G,
+    }
+    return {
+        "input_bytes": n, "maxblocks": mb, "groups": G, "nb_pad": nb_pad,
+        "nb": mr.nb, "nb_total": mr.nb_total, "n_max": steps,
+        "rows_used_max": int(used.max()),
+        "blocks_best_past_64": sum(rb >= 64 for rb in best),
+        "chain_rounds": mr.chain_rounds, "output_bytes": len(outs["mega"]),
+        "split2": mr.split2, "checks": checks,
+        "warm_seconds": {"mega": [runs["mega"]["seconds"],
+                                  runs["mega_2"]["seconds"]],
+                         "two_phase": [runs["two_phase"]["seconds"],
+                                       runs["two_phase_2"]["seconds"]]},
+        "cold_seconds": {"mega": runs["mega_cold"]["seconds"],
+                         "two_phase": runs["two_phase_cold"]["seconds"]},
+        "dispatch_enqueue_s": enqueue, "result_pull_s": pull,
+        "mega_run": m, "two_phase_run": runs["two_phase"],
+        "verify_fails_total": squeeze_batched.VERIFY_FAILS[0]}
+
+
+def phase_mega(data, dev="cuda") -> dict:
+    """ZT_MEGA=1 (MEGA_MIN: 512 KiB) at the production geometry: 1 MiB of
+    repo text (one master: G=1, nb_pad 64), 2 MiB at
+    ZT_MASTER_SIZE=2097152 (MB 32, G=2, nb_pad 128), and 84,000 bytes at
+    ZT_REPLICAS=5 (MEGA_MIN lowered for it; G=1, nb_pad 128, 90 lane
+    blocks: rows past 64 carry tiles).  Bytes equal to the two-phase
+    path's in the same call, zlib round trip, no verify fallback,
+    per-block costs equal to FusedSqueeze's, no sync inside
+    mega_dispatch, launches as predicted (K1/K2 15 + 1; split_step
+    2*N_MAX; autotype_cost 2*N_MAX + 2; no host-controlled split round).
+    Returns the 1 MiB mega run's launches."""
+    from zopfli_tpu_torch.ops import mega
+
+    cases = {}
+    for name, nbytes, msize, replicas in MEGA_CASES:
+        raw = (data.tobytes() if nbytes == MIB else _wide_bytes()
+               if name == "wide" else corpus_bytes(nbytes))
+        restores = [_env("ZT_MASTER_SIZE", msize),
+                    _env("ZT_REPLICAS", replicas)]
+        mega_min = mega.MEGA_MIN
+        if name == "wide":
+            mega.MEGA_MIN = 1000
+        try:
+            cases[name] = c = _mega_case(raw, dev)
+        finally:
+            mega.MEGA_MIN = mega_min
+            for restore in restores:
+                restore()
+        if name == "wide":
+            c["checks"]["rows_past_64"] = (c["nb_total"] > 64
+                                           and c["rows_used_max"] >= 64
+                                           and c["blocks_best_past_64"] > 0)
+    ok = all(all(c["checks"].values()) for c in cases.values())
+    emit({"phase": "mega", "ok": ok, "iterations": ITERATIONS, **cases})
+    if not ok:
+        raise RuntimeError("mega check failed: " + json.dumps(
+            {k: c["checks"] for k, c in cases.items()}))
+    return cases["1mib"]["mega_run"]["launches"]
 
 
 def phase_many(dev="cuda") -> None:
@@ -1862,14 +2357,16 @@ def main(argv) -> int:
 
         phase_env(zt_scan)
         data = np.frombuffer(corpus_1mib(), dtype=np.uint8)
-        if only in ("oracle", "parallel"):
-            (phase_oracle if only == "oracle" else phase_parallel)(
-                *((data,) if only == "oracle" else ()))
+        if only in ("oracle", "parallel", "mega"):
+            {"oracle": phase_oracle, "parallel": phase_parallel,
+             "mega": phase_mega}[only](
+                *(() if only == "parallel" else (data,)))
             return 0
         kernels = phase_kernels(data)
         if only == "kernels":
             return 0
         launches, gz = phase_main(data)
+        mega_launches = phase_mega(data)
         phase_profile(data)
         phase_many()
         inputs = png_inputs()
@@ -1878,7 +2375,11 @@ def main(argv) -> int:
         oracle = phase_oracle(data)
         g4 = phase_parallel()
         for k, entry in kernels.items():
-            entry["launches"] = launches[k]
+            # The mega path's own count for its split_step kernel; the
+            # default path's for the rest, with the mega path's beside.
+            entry["launches"] = (mega_launches[k] if k == "split_step"
+                                 else launches[k])
+            entry["launches_mega"] = mega_launches[k]
             entry["launches_png"] = png_launches[k]
             if k in ("scan", "traceback"):
                 # Times at the PNG batch's fused-loop shape (phase png).

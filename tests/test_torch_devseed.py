@@ -119,9 +119,3 @@ def test_default_output_round_trips():
             out = zt.compress(data, "gzip", zt.Options(
                 device="cpu", numiterations=ITERATIONS))
         assert zlib.decompress(out, 31) == data, name
-
-
-def test_mega_is_a_later_slice(monkeypatch):
-    monkeypatch.setenv("ZT_MEGA", "1")
-    with pytest.raises(NotImplementedError, match="ops/mega"):
-        zt.compress(b"abc" * 100, "gzip", zt.Options(device="cpu"))

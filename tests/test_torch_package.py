@@ -43,7 +43,7 @@ def test_port_sources_import_no_jax_or_reference():
             "zopfli_tpu_torch/ops/seed.py", "zopfli_tpu_torch/cli.py",
             "zopfli_tpu_torch/png/cli.py",
             "zopfli_tpu_torch/png/optimize.py", "zopfli_tpu_torch/ops/dp.py",
-            "zopfli_tpu_torch/ops/engine.py",
+            "zopfli_tpu_torch/ops/engine.py", "zopfli_tpu_torch/ops/mega.py",
             "zopfli_tpu_torch/parallel/dist.py",
             "zopfli_tpu_torch/parallel/multihost.py"} <= names
     for path in files:
@@ -80,7 +80,8 @@ def test_import_and_compress_leave_jax_unloaded(tmp_path):
         "out = optimize(png, PNGOptions(device='cpu', num_iterations=2))\n"
         "for p in (out, open('b.png', 'rb').read()):\n"
         "    assert (codec.decode(p)[0] == codec.decode(png)[0]).all()\n"
-        "from zopfli_tpu_torch.ops import dp, engine\n"
+        "from zopfli_tpu_torch.ops import dp, engine, mega\n"
+        "assert callable(mega.mega_dispatch) and mega.MEGA_MIN > 0\n"
         "from zopfli_tpu_torch.parallel import dist, multihost\n"
         "arr = np.frombuffer(data, np.uint8)\n"
         "lit, dst = engine.DeviceBlockEngine(arr, 0, len(arr),"
@@ -125,13 +126,6 @@ def test_native_engine_and_bad_options():
         zt.compress(data, "gzip", zt.Options(engine="tpu", device="cpu"))
     with pytest.raises(ValueError):
         zt.compress(data, "bz2", zt.Options(device="cpu"))
-
-
-def test_mega_is_the_next_slice(monkeypatch):
-    import zopfli_tpu_torch as zt
-    monkeypatch.setenv("ZT_MEGA", "1")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        zt.compress(b"abc" * 100, "gzip", zt.Options(device="cpu"))
 
 
 def test_empty_gzip_is_twenty_bytes():

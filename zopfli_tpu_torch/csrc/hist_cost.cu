@@ -18,6 +18,9 @@
 //     zopfli_tpu/ops/devsplit.py:104).  One launch is one probe round of
 //     the block split: range histograms, dynamic, fixed and stored costs.
 //     The fixed-cost gate is one for the whole store or one per range.
+//     A second entry, zt_autotype_cost_dev, reads the range count from
+//     device memory: the rounds of the split search under device control
+//     (csrc/split_ctl.cu), queued without the host knowing their size.
 // Counts must stay below 2^29 (package-merge weights are int32, clamped
 // at 2^29 as the plain version clamps).
 //
@@ -775,21 +778,19 @@ __device__ __forceinline__ int fixed_ll_bits(int i) {
 // One cluster per range [starts[b], ends[b]): both blocks build its
 // histograms from two checkpoint rows and at most 2 x 255 stream symbols
 // (shared-memory atomics), then the dynamic cost; block 0 adds the
-// stored and fixed costs.
-__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BLOCK, 4)
-autotype_cost_kernel(const int64_t* __restrict__ ll_ck,
-                     const int64_t* __restrict__ d_ck,
-                     const int64_t* __restrict__ ll_sym,
-                     const int64_t* __restrict__ d_sym,
-                     const int64_t* __restrict__ bcum,
-                     const int64_t* __restrict__ starts,
-                     const int64_t* __restrict__ ends,
-                     const uint8_t* __restrict__ small_rows,
-                     int64_t* __restrict__ out, int64_t ncap, int small) {
-  __shared__ Smem s;
-  const int set = (int)__clusterRelativeBlockRank();
+// stored and fixed costs.  All threads of both blocks.
+__device__ __forceinline__ void autotype_row(Smem& s, int set, int64_t row,
+                             const int64_t* __restrict__ ll_ck,
+                             const int64_t* __restrict__ d_ck,
+                             const int64_t* __restrict__ ll_sym,
+                             const int64_t* __restrict__ d_sym,
+                             const int64_t* __restrict__ bcum,
+                             const int64_t* __restrict__ starts,
+                             const int64_t* __restrict__ ends,
+                             const uint8_t* __restrict__ small_rows,
+                             int64_t* __restrict__ out, int64_t ncap,
+                             int small) {
   const int tid = threadIdx.x;
-  const int64_t row = blockIdx.x >> 1;
   const int64_t s0 = starts[row], e0 = ends[row];
   if (e0 <= s0) {   // both blocks of the cluster leave here
     if (set == 0 && tid == 0) out[row] = BIG;
@@ -851,6 +852,39 @@ autotype_cost_kernel(const int64_t* __restrict__ ll_ck,
   }
 }
 
+// kCounted = false: one cluster per range, ranges [0, gridDim/2).
+// kCounted = true: ranges [0, n) with n = min(*count, rows) read on the
+// device (a round that a split step wrote, csrc/split_ctl.cu): the grid
+// is sized without knowing n, and a cluster takes ranges blockIdx/2,
+// + gridDim/2, ... (none at or past the count).
+template <bool kCounted>
+__global__ void __cluster_dims__(2, 1, 1) __launch_bounds__(BLOCK, 4)
+autotype_cost_kernel(const int64_t* __restrict__ ll_ck,
+                     const int64_t* __restrict__ d_ck,
+                     const int64_t* __restrict__ ll_sym,
+                     const int64_t* __restrict__ d_sym,
+                     const int64_t* __restrict__ bcum,
+                     const int64_t* __restrict__ starts,
+                     const int64_t* __restrict__ ends,
+                     const uint8_t* __restrict__ small_rows,
+                     const int64_t* __restrict__ count,
+                     int64_t* __restrict__ out, int64_t rows, int64_t ncap,
+                     int small) {
+  __shared__ Smem s;
+  const int set = (int)__clusterRelativeBlockRank();
+  if (!kCounted) {
+    autotype_row(s, set, blockIdx.x >> 1, ll_ck, d_ck, ll_sym, d_sym, bcum,
+                 starts, ends, small_rows, out, ncap, small);
+    return;
+  }
+  const int64_t n = *count < rows ? *count : rows;
+  for (int64_t row = blockIdx.x >> 1; row < n; row += gridDim.x >> 1) {
+    __syncthreads();   // the previous range's shared memory is read
+    autotype_row(s, set, row, ll_ck, d_ck, ll_sym, d_sym, bcum, starts,
+                 ends, small_rows, out, ncap, small);
+  }
+}
+
 }  // namespace
 
 extern "C" size_t zt_hist_cost_smem_bytes() { return sizeof(Smem); }
@@ -873,11 +907,44 @@ extern "C" int zt_autotype_cost(const void* ll_ck, const void* d_ck,
                                 void* out, int rows, long long ncap, int small,
                                 void* stream) {
   if (rows <= 0) return (int)cudaErrorInvalidValue;
-  autotype_cost_kernel<<<2 * rows, BLOCK, 0, (cudaStream_t)stream>>>(
+  autotype_cost_kernel<false><<<2 * rows, BLOCK, 0, (cudaStream_t)stream>>>(
       (const int64_t*)ll_ck, (const int64_t*)d_ck, (const int64_t*)ll_sym,
       (const int64_t*)d_sym, (const int64_t*)bcum, (const int64_t*)starts,
-      (const int64_t*)ends, (const uint8_t*)small_rows, (int64_t*)out,
-      (int64_t)ncap, small);
+      (const int64_t*)ends, (const uint8_t*)small_rows, nullptr,
+      (int64_t*)out, (int64_t)rows, (int64_t)ncap, small);
+  return (int)cudaGetLastError();
+}
+
+// The same with the range count read on the device: `count` points at one
+// int64 (a split step's round size, csrc/split_ctl.cu), `max_rows` bounds
+// it, and the gate is per range.  The grid holds at most the clusters
+// that are resident at once (two per SM), each taking ranges in turn, so
+// a round of 0 or 18 ranges costs little more than its own clusters.
+extern "C" int zt_autotype_cost_dev(const void* ll_ck, const void* d_ck,
+                                    const void* ll_sym, const void* d_sym,
+                                    const void* bcum, const void* starts,
+                                    const void* ends, const void* small_rows,
+                                    const void* count, void* out, int max_rows,
+                                    long long ncap, void* stream) {
+  static int resident = 0;
+  if (max_rows <= 0 || !count || !small_rows)
+    return (int)cudaErrorInvalidValue;
+  if (resident == 0) {
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    resident = 2 * sms;
+  }
+  const int clusters = max_rows < resident ? max_rows : resident;
+  autotype_cost_kernel<true><<<2 * clusters, BLOCK, 0,
+                             (cudaStream_t)stream>>>(
+      (const int64_t*)ll_ck, (const int64_t*)d_ck, (const int64_t*)ll_sym,
+      (const int64_t*)d_sym, (const int64_t*)bcum, (const int64_t*)starts,
+      (const int64_t*)ends, (const uint8_t*)small_rows,
+      (const int64_t*)count, (int64_t*)out, (int64_t)max_rows,
+      (int64_t)ncap, 0);
   return (int)cudaGetLastError();
 }
 

@@ -379,8 +379,16 @@ def emit_results(options: Options, data: np.ndarray, chunk, results,
     chunk: [(start, end, fin, ...)]; results from devseed_collect.
     out_for(i) -> BitStream; factory_for(i) -> engine factory.
     """
-    presplits = [prepare_second_split(options, res[1])
-                 if res[0] == "stores" else None for res in results]
+    def presplit_for(res):
+        if res[0] != "stores":
+            return None
+        if len(res) > 2 and res[2] is not None:
+            # Megafused masters computed the whole second-split attempt
+            # (search + both cost totals) on the device.
+            return ("decision", res[2])
+        return prepare_second_split(options, res[1])
+
+    presplits = [presplit_for(res) for res in results]
     for i, (m, res, ps) in enumerate(zip(chunk, results, presplits)):
         start, end, fin = m[0], m[1], m[2]
         if res[0] == "stored":
@@ -394,7 +402,8 @@ def finish_part(options: Options, final: bool, stores: list,
                 out: BitStream, engine_factory, presplit=None) -> None:
     """Second split attempt + emission for one master's parsed blocks.
 
-    presplit: optional (lz77, handle) from prepare_second_split.
+    presplit: optional (lz77, handle) from prepare_second_split, or
+    ("decision", (sp2, tc1, tc2)) from the megafused program.
     """
     with span("zt.finish"):
         _finish_part(options, final, stores, out, engine_factory, presplit)
@@ -404,15 +413,24 @@ def _finish_part(options: Options, final: bool, stores: list,
                  out: BitStream, engine_factory, presplit) -> None:
     from .ops import devsplit
 
-    tracer = options.tracer
+    splitpoints = [int(x) for x in np.cumsum([st.size
+                                              for st in stores[:-1]])]
+
+    if presplit is not None and presplit[0] == "decision":
+        # Megafused path: the second split's search and the exact cost
+        # totals of both bound sets came from the device, so the host
+        # cost pass below is not needed.
+        sp2, tc1, tc2 = presplit[1]
+        lz77 = concat_stores(stores)
+        if options.blocksplitting and len(splitpoints) > 1 and tc2 < tc1:
+            splitpoints = sp2
+        _emit_bounds(options, final, lz77, [0] + splitpoints + [lz77.size],
+                     out, engine_factory)
+        return
+
     totalcost = 0.0
-    splitpoints = []
-    acc = 0
-    for i, st in enumerate(stores):
+    for st in stores:
         totalcost += blocks.calculate_block_size_auto_type(st, 0, st.size)
-        acc += st.size
-        if i + 1 < len(stores):
-            splitpoints.append(acc)
 
     if presplit is None and options.engine == "device":
         presplit = prepare_second_split(options, stores)
@@ -437,7 +455,14 @@ def _finish_part(options: Options, final: bool, stores: list,
         if totalcost2 < totalcost:
             splitpoints = splitpoints2
 
-    bounds = [0] + splitpoints + [lz77.size]
+    _emit_bounds(options, final, lz77, [0] + splitpoints + [lz77.size], out,
+                 engine_factory)
+
+
+def _emit_bounds(options: Options, final: bool, lz77: LZ77Store, bounds,
+                 out: BitStream, engine_factory) -> None:
+    """One auto-type block per [bounds[i], bounds[i+1]) of the store."""
+    tracer = options.tracer
     for i in range(len(bounds) - 1):
         add_lz77_block_auto_type(options, (i == len(bounds) - 2) and final,
                                  lz77, bounds[i], bounds[i + 1], out,
@@ -598,7 +623,9 @@ def _devseed_pipeline(options: Options, data, chunks, window_start,
         mb = max(scaled_maxblocks(options, end - start)
                  for (start, end) in ranges)
         fired = devseed_fire(data, ranges, mb, window_starts=wstarts,
-                             device=device)
+                             device=device,
+                             numiterations=options.numiterations,
+                             devices=devices)
         if pending is not None:
             emit(*pending)
         entry = devseed_dispatch(data, ranges, options.numiterations, mb,

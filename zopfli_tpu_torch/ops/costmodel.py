@@ -402,7 +402,8 @@ _INV_LN2_X2 = float(2.0 / np.log(2.0))
 
 
 def _f32(x: float, dev) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=dev)
+    # A fill, not a copy from the host: no sync on a CUDA device.
+    return torch.full((), x, dtype=torch.float32, device=dev)
 
 
 def _log2_int(c: torch.Tensor) -> torch.Tensor:

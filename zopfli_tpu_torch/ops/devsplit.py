@@ -18,6 +18,13 @@ folded into its first batch) and pulls the few costs the next round
 needs -- one host sync per round.  The control reads only those integer
 costs, so the split points equal the JAX program's.
 
+split_lz77_resident runs the same search with its control on the device
+(the megafused program's, ops.mega): the loop's state lives in one
+tensor, one split_step kernel (csrc/split_ctl.cu) advances it by a round
+and writes the next round's ranges and their count, and autotype_cost's
+device-count entry costs them.  The host queues n_max such pairs without
+a sync; the ones after the search finished do nothing.
+
 Semantics notes (bit-exact to the reference):
   - auto-type cost = min(uncompressed, fixed, dynamic); the fixed cost
     is only computed when the whole store has <= 1000 symbols
@@ -31,6 +38,8 @@ Semantics notes (bit-exact to the reference):
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -56,9 +65,11 @@ _LL_EXTRA[257:286] = spec.LENGTH_SYMBOL_EXTRA_BITS
 _D_EXTRA = np.zeros(spec.NUM_D, np.int64)
 _D_EXTRA[:30] = spec.DIST_SYM_EXTRA_BITS
 
-# Split searches run, their probe rounds (one batched cost evaluation
-# each) and their host syncs (result pulls), for reports.
-STATS = {"searches": 0, "rounds": 0, "syncs": 0}
+# Split searches run, their host-controlled probe rounds (one batched
+# cost evaluation each) and host syncs (result pulls), and the rounds of
+# the searches under device control (read from their chains' states when
+# the megafused program's results are pulled), for reports.
+STATS = {"searches": 0, "rounds": 0, "syncs": 0, "chain_rounds": 0}
 
 
 def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -73,11 +84,11 @@ _TABLES: dict = {}
 
 
 def table(name: str, a: np.ndarray, dev) -> torch.Tensor:
-    """A constant table on `dev`, copied once per device: a fresh copy
-    per call would sync the stream every probe round."""
+    """A constant table on `dev`, copied once per device without a sync:
+    a fresh blocking copy per call would sync the stream every time."""
     key = (name, str(dev))
     if key not in _TABLES:
-        _TABLES[key] = torch.as_tensor(a, device=dev)
+        _TABLES[key] = upload(np.asarray(a), torch.device(dev))
     return _TABLES[key]
 
 
@@ -174,16 +185,8 @@ def autotype_costs(ll_ck, d_ck, ll_sym, d_sym, bcum, starts, ends,
     B = starts.shape[0]
     if B == 0:
         return torch.zeros(0, dtype=torch.int64, device=dev)
-    nck = ncap // CKPT + 1
-    for t, shape, what in ((ll_ck, (nck, spec.NUM_LL), "ll_ck"),
-                           (d_ck, (nck, spec.NUM_D), "d_ck"),
-                           (ll_sym, (ncap,), "ll_sym"),
-                           (d_sym, (ncap,), "d_sym"),
-                           (bcum, (ncap + 1,), "bcum"),
-                           (starts, (B,), "starts"), (ends, (B,), "ends")):
-        scan_kernel.check(t, torch.int64, shape, what)
-        if t.device != dev:
-            raise ValueError("autotype_costs: inputs on different devices")
+    _check_ranges((ll_ck, d_ck, ll_sym, d_sym, bcum), ncap,
+                  ((starts, "starts"), (ends, "ends")), B, "autotype_costs")
     gate_ptr, small = None, 0
     if isinstance(small_store, torch.Tensor):
         scan_kernel.check(small_store, torch.bool, (B,), "small_store")
@@ -203,6 +206,21 @@ def autotype_costs(ll_ck, d_ck, ll_sym, d_sym, bcum, starts, ends,
             stream), "autotype_cost")
     scan_kernel.LAUNCHES["autotype_cost"] += 1
     return out
+
+
+def _check_ranges(tabs, ncap: int, ranges, B: int, name: str) -> None:
+    """The cost kernel's tables and (B,) int64 range tensors: shapes,
+    types, contiguity, one device."""
+    nck = ncap // CKPT + 1
+    shapes = ((nck, spec.NUM_LL), (nck, spec.NUM_D), (ncap,), (ncap,),
+              (ncap + 1,))
+    items = [(t, shape, what) for t, shape, what in zip(
+        tabs, shapes, ("ll_ck", "d_ck", "ll_sym", "d_sym", "bcum"))]
+    items += [(t, (B,), what) for t, what in ranges]
+    for t, shape, what in items:
+        scan_kernel.check(t, torch.int64, shape, what)
+        if t.device != tabs[0].device:
+            raise ValueError(f"{name}: inputs on different devices")
 
 
 def autotype_costs_plain(ll_ck, d_ck, ll_sym, d_sym, bcum, starts, ends,
@@ -348,6 +366,312 @@ def split_lz77_device(litlens: torch.Tensor, dists: torch.Tensor,
     if return_ck:
         return sp, npts, ll_ck, d_ck, bcum
     return sp, npts
+
+
+# ---------------------------------------------------------------------------
+# The same search under device control: a chain of split steps.
+# ---------------------------------------------------------------------------
+#
+# The state of split_lz77_device's loop lives in one int64 tensor (the
+# layout csrc/split_ctl.cu reads).  One split step consumes the costs of
+# the round the previous step issued, advances the state exactly as the
+# host loop does, and writes the next round's ranges and their count
+# (S_COUNT; 0 once the search has finished).  The host queues N_MAX
+# (step, autotype_cost) pairs without a sync; a step after the search
+# finished, and the cost launch after it, do nothing.
+
+(S_IT, S_NPTS, S_NDONE, S_NUMBLOCKS, S_FINISHED, S_MODE, S_LSTART, S_LEND,
+ S_ORIG, S_START, S_END, S_POS, S_LASTBEST, S_NLIN, S_COUNT, S_OVERFLOW,
+ S_ROUNDS) = range(17)
+S_HEAD = 20                    # sp at [S_HEAD, +MB), done at [+MB, +2MB+1)
+M_SELECT, M_LINEAR, M_PROBE = 0, 1, 2
+MAX_RANGES = 2 * (LINEAR_MAX - 1) + 1   # a linear round: 1023 points
+
+
+@functools.lru_cache(maxsize=None)
+def _probe_rounds_table(top: int = 4096) -> tuple:
+    """t[s] = the most probe rounds FindMinimum runs on any span <= s."""
+    @functools.lru_cache(maxsize=None)
+    def rounds(s: int) -> int:
+        if s <= NUM:
+            return 0
+        step = s // (NUM + 1)
+        # Interior best: span 2*step; last probe best: 2*step + s % 10.
+        return 1 + max(rounds(2 * step), rounds(2 * step + s % (NUM + 1)))
+    t = [0] * (top + 1)
+    for s in range(1, top + 1):
+        t[s] = max(t[s - 1], rounds(s))
+    return tuple(t)
+
+
+def probe_rounds_max(span: int) -> int:
+    """The most probe rounds of one FindMinimum on a span <= `span`."""
+    t = _probe_rounds_table()
+    if span < len(t):
+        return t[span]
+    # Any span <= S narrows to at most 2 * (S // 10) + 9.
+    return 1 + probe_rounds_max(2 * (span // (NUM + 1)) + NUM)
+
+
+def n_max(maxblocks: int, ncap: int) -> int:
+    """Split steps of one chain: the outer loop evaluates at most
+    2*maxblocks segments, each one linear round or at most
+    probe_rounds_max(ncap) probe rounds; one more step consumes the last
+    round's costs."""
+    return 2 * maxblocks * max(1, probe_rounds_max(ncap)) + 1
+
+
+def split_state(maxblocks: int, ncap: int, dev) -> torch.Tensor:
+    """A fresh search state on `dev` (uploaded without a sync)."""
+    st = np.zeros(S_HEAD + 2 * maxblocks + 1, np.int64)
+    st[S_NUMBLOCKS] = 1
+    st[S_MODE] = M_SELECT
+    st[S_HEAD:S_HEAD + maxblocks] = ncap + 1           # sorted, sentinels
+    st[S_HEAD + maxblocks:] = -1                       # done starts
+    return upload(st, torch.device(dev))
+
+
+def _round_ranges(kind: str, lstart: int, lend: int, start: int, end: int):
+    """(a, b) of a round: both halves at each point, then [lstart, lend)
+    on a linear or first probe round ("probe0"), not on later ones."""
+    if kind == "linear":
+        pts = np.arange(lstart + 1, lend, dtype=np.int64)
+    else:
+        step = (end - start) // (NUM + 1)
+        pts = start + (np.arange(NUM, dtype=np.int64) + 1) * step
+    n = len(pts)
+    a = np.concatenate([np.full(n, lstart), pts])
+    b = np.concatenate([pts, np.full(n, lend)])
+    if kind != "probe":
+        a, b = np.append(a, lstart), np.append(b, lend)
+    return a.astype(np.int64), b.astype(np.int64)
+
+
+def split_step_plain(state, nsym, costs, starts, ends, small_rows,
+                     maxblocks: int, ncap: int, last: bool) -> None:
+    """Plain version of the split_step kernel: one step of the search on
+    CPU tensors, in place.  costs (MAX_RANGES,) int64 holds the costs of
+    the round the previous step issued; starts/ends (MAX_RANGES,) int64
+    and small_rows (MAX_RANGES,) bool receive the next round's ranges and
+    fixed-cost gates, state[S_COUNT] their count."""
+    MB = maxblocks
+    s = [int(x) for x in state.tolist()]
+    nsym = int(nsym)
+    sp = s[S_HEAD:S_HEAD + MB]
+    done = s[S_HEAD + MB:]
+    if s[S_FINISHED]:
+        state[S_COUNT] = 0
+        return
+    c = costs.tolist()
+
+    def accept_reject(llpos, splitcost, orig):
+        lstart, lend = s[S_LSTART], s[S_LEND]
+        if splitcost > orig or llpos == lstart + 1 or llpos == lend:
+            if s[S_NDONE] >= MB + 1:
+                s[S_OVERFLOW] = 1
+            else:
+                done[s[S_NDONE]] = lstart
+                s[S_NDONE] += 1
+        else:
+            sp[s[S_NPTS]] = llpos
+            sp.sort()
+            s[S_NPTS] += 1
+            s[S_NUMBLOCKS] += 1
+        s[S_IT] += 1
+        s[S_MODE] = M_SELECT
+
+    issue = None
+    if s[S_MODE] == M_LINEAR:
+        n = s[S_NLIN]
+        v = [c[i] + c[n + i] for i in range(n)]
+        k = int(np.argmin(v))
+        accept_reject(s[S_LSTART] + 1 + k, v[k], c[2 * n])
+    elif s[S_MODE] == M_PROBE:
+        start, end = s[S_START], s[S_END]
+        step = (end - start) // (NUM + 1)
+        if s[S_NLIN] == 0:
+            s[S_ORIG] = c[2 * NUM]
+        vp = [c[j] + c[NUM + j] for j in range(NUM)]
+        besti = int(np.argmin(vp))
+        best = vp[besti]
+        stop = best > s[S_LASTBEST]
+        if not stop:
+            nstart = start if besti == 0 else start + besti * step
+            nend = end if besti == NUM - 1 else start + (besti + 2) * step
+            s[S_START], s[S_END] = nstart, nend
+            s[S_POS], s[S_LASTBEST] = start + (besti + 1) * step, best
+            stop = nend - nstart <= NUM
+        if stop:
+            accept_reject(s[S_POS], s[S_LASTBEST], s[S_ORIG])
+        else:
+            s[S_NLIN] += 1
+            issue = "probe"
+    if s[S_MODE] == M_SELECT:
+        # Largest splittable segment; the FIRST evaluation runs on
+        # [0, nsym), later segment ends use the size-1 quirk.
+        npts = s[S_NPTS]
+        best_len, seg = None, 0
+        for g in range(MB + 1):
+            st_g = 0 if g == 0 else sp[g - 1]
+            en_g = nsym - 1 if g == npts else (sp[g] if g < MB else 0)
+            ln = (en_g - st_g if g <= npts
+                  and st_g not in done[:s[S_NDONE]] else -1)
+            if best_len is None or ln > best_len:
+                best_len, seg = ln, g
+                lstart_g, lend_g = st_g, en_g
+        first = s[S_IT] == 0
+        lstart = 0 if first else lstart_g
+        lend = nsym if first else lend_g
+        found = first or best_len > 0
+        if (nsym < 10 or s[S_IT] >= 2 * MB or not found
+                or s[S_NUMBLOCKS] >= MB or lend - lstart < 10):
+            s[S_FINISHED] = 1
+        else:
+            s[S_LSTART], s[S_LEND] = lstart, lend
+            if lend - lstart - 1 < LINEAR_MAX:
+                s[S_MODE], s[S_NLIN] = M_LINEAR, lend - lstart - 1
+                issue = "linear"
+            else:
+                s[S_MODE], s[S_NLIN] = M_PROBE, 0
+                s[S_START], s[S_END] = lstart + 1, lend
+                s[S_POS], s[S_LASTBEST] = lstart + 1, BIG
+                issue = "probe0"
+    count = 0
+    if issue is not None:
+        a, b = _round_ranges(issue, s[S_LSTART], s[S_LEND], s[S_START],
+                             s[S_END])
+        count = len(a)
+        starts[:count] = torch.from_numpy(a)
+        ends[:count] = torch.from_numpy(b)
+        small_rows[:count] = nsym <= 1000
+        s[S_ROUNDS] += 1
+    s[S_COUNT] = count
+    if last and not s[S_FINISHED]:
+        s[S_OVERFLOW] = 1
+    s[S_HEAD:S_HEAD + MB] = sp
+    s[S_HEAD + MB:] = done
+    state.copy_(torch.tensor(s, dtype=torch.int64))
+
+
+def split_step(state, nsym, costs, starts, ends, small_rows, maxblocks: int,
+               ncap: int, last: bool) -> None:
+    """One split step: the split_step kernel (csrc/split_ctl.cu) on CUDA
+    tensors, the plain version on CPU tensors.  nsym is a 0-d int64
+    tensor on the state's device."""
+    if scan_kernel.device_kind(state) == "cpu":
+        split_step_plain(state, nsym, costs, starts, ends, small_rows,
+                         maxblocks, ncap, last)
+        return
+    dev = state.device
+    scan_kernel.check(state, torch.int64, (S_HEAD + 2 * maxblocks + 1,),
+                      "state")
+    scan_kernel.check(nsym, torch.int64, (), "nsym")
+    for t, what in ((costs, "costs"), (starts, "starts"), (ends, "ends")):
+        scan_kernel.check(t, torch.int64, (MAX_RANGES,), what)
+    scan_kernel.check(small_rows, torch.bool, (MAX_RANGES,), "small_rows")
+    for t in (nsym, costs, starts, ends, small_rows):
+        if t.device != dev:
+            raise ValueError("split_step: inputs on different devices")
+    lib = scan_kernel.build_kernels()["split_ctl"]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scan_kernel.raise_on(lib.zt_split_step(
+            state.data_ptr(), nsym.data_ptr(), costs.data_ptr(),
+            starts.data_ptr(), ends.data_ptr(), small_rows.data_ptr(),
+            maxblocks, int(bool(last)), stream), "split_step")
+    scan_kernel.LAUNCHES["split_step"] += 1
+
+
+def autotype_costs_counted(tabs, starts, ends, small_rows, state, costs,
+                           ncap: int) -> None:
+    """Costs of the round a split step issued, into `costs`: ranges
+    [0, state[S_COUNT]) of starts/ends.  On CUDA tensors one launch of the
+    autotype_cost kernel's device-count entry (grid sized for
+    MAX_RANGES, the count read on the device); on CPU tensors the plain
+    version on the first count ranges."""
+    ll_ck, d_ck, ll_sym, d_sym, bcum = tabs
+    if scan_kernel.device_kind(state) == "cpu":
+        n = int(state[S_COUNT])
+        if n:
+            costs[:n] = autotype_costs_plain(
+                ll_ck, d_ck, ll_sym, d_sym, bcum, starts[:n], ends[:n],
+                ncap, small_rows[:n])
+        return
+    dev = state.device
+    _check_ranges(tabs, ncap, ((starts, "starts"), (ends, "ends"),
+                               (costs, "costs")),
+                  MAX_RANGES, "autotype_costs_counted")
+    scan_kernel.check(small_rows, torch.bool, (MAX_RANGES,), "small_rows")
+    if (state.dtype != torch.int64 or not state.is_contiguous()
+            or state.numel() <= S_COUNT):
+        raise ValueError("autotype_costs_counted: state must be a "
+                         "contiguous int64 split state")
+    if small_rows.device != dev or ll_ck.device != dev:
+        raise ValueError("autotype_costs_counted: inputs on different "
+                         "devices")
+    lib = scan_kernel.build_kernels()["hist_cost"]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scan_kernel.raise_on(lib.zt_autotype_cost_dev(
+            ll_ck.data_ptr(), d_ck.data_ptr(), ll_sym.data_ptr(),
+            d_sym.data_ptr(), bcum.data_ptr(), starts.data_ptr(),
+            ends.data_ptr(), small_rows.data_ptr(),
+            state.data_ptr() + 8 * S_COUNT, costs.data_ptr(), MAX_RANGES,
+            ncap, stream), "autotype_cost")
+    scan_kernel.LAUNCHES["autotype_cost"] += 1
+
+
+def split_chain(tabs, nsym, ncap: int, maxblocks: int,
+                steps: int | None = None) -> torch.Tensor:
+    """The whole search as a chain of `steps` (default n_max) split
+    steps and cost rounds, queued without a host sync; returns the final
+    state.  On the CPU the chain stops at the step that finishes the
+    search (the rest would do nothing) and an unfinished chain raises; on
+    the card the caller reads state[S_OVERFLOW] with its results."""
+    dev = tabs[0].device
+    if steps is None:
+        steps = n_max(maxblocks, ncap)
+    state = split_state(maxblocks, ncap, dev)
+    costs = torch.zeros(MAX_RANGES, dtype=torch.int64, device=dev)
+    starts = torch.zeros(MAX_RANGES, dtype=torch.int64, device=dev)
+    ends = torch.zeros(MAX_RANGES, dtype=torch.int64, device=dev)
+    small_rows = torch.zeros(MAX_RANGES, dtype=torch.bool, device=dev)
+    on_cpu = dev.type == "cpu"
+    STATS["searches"] += 1
+    for k in range(steps):
+        split_step(state, nsym, costs, starts, ends, small_rows, maxblocks,
+                   ncap, k == steps - 1)
+        autotype_costs_counted(tabs, starts, ends, small_rows, state, costs,
+                               ncap)
+        if on_cpu and state[S_FINISHED]:
+            break
+    if on_cpu and state[S_OVERFLOW]:
+        raise RuntimeError("split chain: the search did not finish in "
+                           f"{steps} steps")
+    return state
+
+
+def split_lz77_resident(litlens: torch.Tensor, dists: torch.Tensor,
+                        ncap: int, maxblocks: int, nsym: torch.Tensor,
+                        return_ck: bool = False, return_state: bool = False):
+    """split_lz77_device with the search's control on the stream's device.
+
+    nsym is a 0-d int64 tensor on that device.  Returns (sp, npts) as
+    device tensors: sp (maxblocks,) ascending SYMBOL indices padded with
+    ncap + 1, npts 0-d; with return_ck also (ll_ck, d_ck, bcum) as
+    split_lz77_device returns them; with return_state also the chain's
+    final state (S_OVERFLOW, S_ROUNDS).  Nothing here reads the device.
+    """
+    ll_sym, d_sym, nbytes = stream_symbols(litlens, dists, ncap, nsym)
+    ll_ck, d_ck, bcum = checkpoints(ll_sym, d_sym, nbytes, ncap, nsym)
+    state = split_chain((ll_ck, d_ck, ll_sym, d_sym, bcum), nsym, ncap,
+                        maxblocks)
+    out = (state[S_HEAD:S_HEAD + maxblocks], state[S_NPTS])
+    if return_ck:
+        out = out + (ll_ck, d_ck, bcum)
+    if return_state:
+        out = out + (state,)
+    return out
 
 
 def block_split_lz77_device_dispatch(litlens: np.ndarray,

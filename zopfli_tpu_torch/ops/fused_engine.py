@@ -89,6 +89,229 @@ def _filler(n: int) -> np.ndarray:
     return (np.arange(n, dtype=np.uint32) * 2654435761 >> 13).astype(np.uint8)
 
 
+class SqueezeLoop:
+    """The fused iteration loop over prepared lane-group tensors.
+
+    The counterpart of the JAX package's _loop_pieces
+    (zopfli_tpu/ops/fused_engine.py:101): the iteration body, its initial
+    state and the end-of-loop compaction, built from device tensors.
+    FusedSqueeze builds it from its host geometry, ops.mega from a
+    geometry computed on the device.  bl_t, bd_t, dsym_t (G*TILE, KBP,
+    LANES), lit_t, valid_t (G*TILE, LANES), tile_block and tile_nbytes
+    (G, LANES): a lane's block (a row of the nb_pad per-block state) and
+    its bytes (0 = unused).  With `devices`, the lane groups are split
+    over them; `device` keeps the iteration control.
+    """
+
+    def __init__(self, bl_t, bd_t, dsym_t, lit_t, valid_t, tile_block,
+                 tile_nbytes, nb_pad: int, device, devices=None):
+        self.device = torch.device(device)
+        self.nb_pad = nb_pad
+        G = tile_block.shape[0]
+        # Host table: the traceback wrapper reads it without a sync.
+        self.symtab = scan_kernel.symbol_range_table()
+        # Shards: groups [g0, g0 + n) of the lane-group tensors on their
+        # device.  Only the shards keep them: unsharded, the one shard's
+        # tensors are the full ones, without copies.
+        full = SimpleNamespace(
+            bl_t=bl_t.to(torch.int32), bd_t=bd_t.to(torch.int32),
+            lit_t=lit_t.to(torch.int32), dsym_t=dsym_t,
+            valid_t=valid_t.reshape(G, TILE, LANES),
+            # Per-lane block of the histogram reduction (used lanes only).
+            tile_block_d=tile_block.long(),
+            tile_nbytes_d=tile_nbytes.to(torch.int32).contiguous())
+        devs = devices or [self.device]
+        per = G // len(devs)
+        self.shards = [self._shard(full, torch.device(d), i * per, per)
+                       for i, d in enumerate(devs)]
+
+    @staticmethod
+    def _shard(full, d, g0: int, n: int):
+        """The lane-group tensors of groups [g0, g0 + n) on device d."""
+        from .devsplit import table
+
+        rows = slice(g0 * TILE, (g0 + n) * TILE)
+        grp = slice(g0, g0 + n)
+        sh = SimpleNamespace(
+            device=d, groups=n,
+            bl_t=full.bl_t[rows].to(d), bd_t=full.bd_t[rows].to(d),
+            lit_t=full.lit_t[rows].to(d),
+            valid_t=full.valid_t[grp].to(d),
+            tile_block_d=full.tile_block_d[grp].to(d),
+            tile_nbytes_d=full.tile_nbytes_d[grp].to(d),
+            lsym=table("loop_lsym", _LSYM, d),
+            lextra=table("loop_lextra", _LEXTRA, d),
+            dsym_extra=table("loop_dsym_extra", _DSYM_EXTRA, d))
+        sh.lane_used = (sh.tile_nbytes_d > 0).reshape(n * LANES, 1)
+        # Flat gather indices of the per-lane cost tables (n, NSYM, LANES):
+        # bp_dcost[g,t,k,l] = dplus[g, dsym, l]; litcost[g,t,l] = ll[g, lit, l].
+        lane = torch.arange(LANES, device=d)
+        gidx = torch.arange(n, device=d)
+        sh.dsym_idx = ((gidx[:, None, None, None] * spec.NUM_D
+                        + full.dsym_t[rows].to(d).reshape(n, TILE, KBP, LANES)
+                        .long()) * LANES + lane)
+        sh.lit_idx = ((gidx[:, None, None] * spec.NUM_LL
+                       + sh.lit_t.reshape(n, TILE, LANES).long())
+                      * LANES + lane)
+        return sh
+
+    # --- one iteration -----------------------------------------------------
+
+    def _block_costs(self, stats_ll: torch.Tensor, stats_d: torch.Tensor):
+        """Per-block model costs (nb_pad, 288), (nb_pad, 32) of the stats.
+
+        Model costs are quantized to a 1/TIE_GRID-bit grid: per-tile path
+        sums of grid multiples stay exact in f32, so cost ties are real
+        ties and the kernel's relaxation order resolves them as the
+        reference DP does (squeeze.c:288-302).
+        """
+        ll_cost_b = costmodel.calculate_entropy(stats_ll)
+        d_cost_b = costmodel.calculate_entropy(stats_d)
+        if TIE_GRID:
+            # A fill, not a copy from the host: no sync on a CUDA device.
+            grid = torch.full((), TIE_GRID, dtype=torch.float32,
+                              device=self.device)
+            ll_cost_b = torch.round(ll_cost_b * grid) / grid
+            d_cost_b = torch.round(d_cost_b * grid) / grid
+        return ll_cost_b, d_cost_b
+
+    @staticmethod
+    def _shard_inputs(sh, ll_cost_b, d_cost_b):
+        """One shard's DP scan inputs from the per-block costs (on the
+        shard's device): (bl_t, bd_t, bp_dcost, litcost, lcost_vec)."""
+        G = sh.groups
+        ll_t = ll_cost_b[sh.tile_block_d]              # (G, LANES, 288)
+        d_t = d_cost_b[sh.tile_block_d]                # (G, LANES, 32)
+        lcost_vec = (ll_t[:, :, sh.lsym] + sh.lextra).permute(
+            0, 2, 1).reshape(G * scan_kernel.W, LANES).contiguous()
+        dplus = (d_t + sh.dsym_extra).permute(0, 2, 1).reshape(-1)
+        bp_dcost = dplus[sh.dsym_idx].reshape(G * TILE, KBP, LANES)
+        litcost = ll_t.permute(0, 2, 1).reshape(-1)[sh.lit_idx]
+        litcost = torch.where(sh.valid_t, litcost, scan_kernel.BIG)
+        return (sh.bl_t, sh.bd_t, bp_dcost.contiguous(),
+                litcost.reshape(G * TILE, LANES).contiguous(), lcost_vec)
+
+    def scan_inputs(self, stats_ll: torch.Tensor, stats_d: torch.Tensor):
+        """The DP scan's inputs of the first shard (all groups when
+        unsharded) under the entropy model of the stats.
+        Returns (bl_t, bd_t, bp_dcost, litcost, lcost_vec)."""
+        sh = self.shards[0]
+        return self._shard_inputs(sh, *(c.to(sh.device) for c in
+                                        self._block_costs(stats_ll,
+                                                          stats_d)))
+
+    def _one_iteration(self, stats_ll, stats_d):
+        costs = self._block_costs(stats_ll, stats_d)
+        hist, peps = None, []
+        for sh in self.shards:
+            G = sh.groups
+            ce, _ = scan_kernel.scan(*self._shard_inputs(
+                sh, *(c.to(sh.device) for c in costs)), groups=G)
+            hist_g, pep = scan_kernel.traceback(ce, sh.lit_t,
+                                                sh.tile_nbytes_d,
+                                                self.symtab, groups=G)
+            # Per-block histograms: an integer index_add over the lanes'
+            # blocks (counts are exact; no float matmul).
+            lanes_h = hist_g.reshape(G, scan_kernel.HBINS, LANES).permute(
+                0, 2, 1).reshape(G * LANES, scan_kernel.HBINS).long()
+            lanes_h = lanes_h * sh.lane_used
+            h = torch.zeros((self.nb_pad, scan_kernel.HBINS),
+                            dtype=torch.int64, device=sh.device)
+            h.index_add_(0, sh.tile_block_d.reshape(-1), lanes_h)
+            # The one reduction across shards: their integer block
+            # histograms summed on the control device.
+            h = h.to(self.device)
+            hist = h if hist is None else hist + h
+            peps.append(pep.reshape(G, TILE, LANES))
+        return hist[:, :spec.NUM_LL], hist[:, spec.NUM_LL:], peps
+
+    def _body(self, i: int, state, ll_maps, d_maps, rep_off):
+        (stats_ll, stats_d, best_cost, best_sll, best_sd,
+         last_cost, last_rand, ec, best_pe) = state
+
+        ll_hist, d_hist, peps = self._one_iteration(stats_ll, stats_d)
+
+        # Exact dynamic-block bits incl. 3-bit header (squeeze.c:492).
+        cost = 3 + costmodel.hist_dynamic_cost(ll_hist, d_hist)
+        improved = cost < best_cost
+        best_cost = torch.where(improved, cost, best_cost)
+        best_sll = torch.where(improved[:, None], stats_ll, best_sll)
+        best_sd = torch.where(improved[:, None], stats_d, best_sd)
+        best_pe = [torch.where(improved.to(sh.device)[sh.tile_block_d]
+                               [:, None, :], pep, bpe)
+                   for sh, pep, bpe in zip(self.shards, peps, best_pe)]
+
+        # Stats feedback (squeeze.c:503-517).  Counts are integers;
+        # trunc(new + 0.5*last) == new + last // 2 exactly.
+        new_ll = ll_hist.clone()
+        new_ll[:, 256] = 1
+        blended_ll = new_ll + stats_ll // 2
+        blended_ll[:, 256] = 1
+        blended_d = d_hist + stats_d // 2
+        blend = (last_rand != -1)[:, None]
+        next_ll = torch.where(blend, blended_ll, new_ll)
+        next_d = torch.where(blend, blended_d, d_hist)
+
+        stuck = (cost == last_cost) if i > 5 else torch.zeros_like(improved)
+        # Replica rows draw from a staggered window of the map stream.
+        ecc = torch.clamp(ec + rep_off, max=MAX_EVENTS - 1)
+        rnd_ll = torch.gather(best_sll, 1, ll_maps[ecc])
+        rnd_ll[:, 256] = 1
+        rnd_d = torch.gather(best_sd, 1, d_maps[ecc])
+        next_ll = torch.where(stuck[:, None], rnd_ll, next_ll)
+        next_d = torch.where(stuck[:, None], rnd_d, next_d)
+        ec = ec + stuck.long()
+        last_rand = torch.where(stuck, i, last_rand)
+
+        return (next_ll, next_d, best_cost, best_sll, best_sd,
+                cost, last_rand, ec, best_pe)
+
+    # --- the loop ----------------------------------------------------------
+
+    def init_state(self, sll: torch.Tensor, sd: torch.Tensor):
+        """The loop's state before iteration 0 from the seed stats (nb_pad,
+        288) and (nb_pad, 32) int64 on the control device."""
+        nbp, dev = self.nb_pad, self.device
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=torch.int64, device=dev)
+
+        return (sll, sd,
+                torch.full((nbp,), LARGE_COST, dtype=torch.int64,
+                           device=dev),
+                zeros(nbp, spec.NUM_LL), zeros(nbp, spec.NUM_D), zeros(nbp),
+                torch.full((nbp,), -1, dtype=torch.int64, device=dev),
+                zeros(nbp),
+                [torch.zeros((sh.groups, TILE, LANES), dtype=torch.int32,
+                             device=sh.device) for sh in self.shards])
+
+    def run(self, state, numiterations: int, ll_maps, d_maps, rep_off):
+        """`numiterations` iterations from `state`, queued on the device
+        without a host sync; returns the last state."""
+        with span("zt.iterations"):
+            for i in range(int(numiterations)):
+                state = self._body(i, state, ll_maps, d_maps, rep_off)
+        return state
+
+    def compact(self, state, fetch_cap: int):
+        """The end-of-loop compaction: each lane's sparse packed path rows
+        to the front (a stable sort by emptiness keeps rows
+        position-ordered), on each shard's device.  Returns (best_cost,
+        best_sll, best_sd, nsym (G, LANES), packed (G, fetch_cap, LANES),
+        best_pe): best_pe is also kept, a lane overflowing fetch_cap pulls
+        it instead."""
+        (_, _, best_cost, best_sll, best_sd, _, _, _, best_pe) = state
+        nsym, packed = [], []
+        for bpe in best_pe:
+            empty = (bpe == 0).to(torch.int32)
+            order = torch.sort(empty, dim=1, stable=True).indices
+            pe_c = torch.gather(bpe, 1, order)
+            nsym.append((1 - empty).sum(dim=1).to(self.device))
+            packed.append(pe_c[:, :fetch_cap, :].to(self.device))
+        return (best_cost, best_sll, best_sd, torch.cat(nsym),
+                torch.cat(packed), best_pe)
+
+
 class FusedSqueeze:
     """Device context for a batch of masters' fused squeeze.
 
@@ -256,169 +479,20 @@ class FusedSqueeze:
                                tile_nbytes_d[g * LANES:(g + 1) * LANES],
                                cap_total)
                  for g in range(self.ngroups)]
-        G = self.ngroups
-        bl_t, bd_t, dsym_t, lit_t, valid_t = (
-            torch.cat([p[i] for p in preps], dim=0).contiguous()
-            for i in range(5))
+        prepared = [torch.cat([p[i] for p in preps], dim=0).contiguous()
+                    for i in range(5)]
         del preps
-        # Host table: the traceback wrapper reads it without a sync.
-        self.symtab = scan_kernel.symbol_range_table()
+        self.loop = SqueezeLoop(
+            *prepared,
+            torch.from_numpy(self.tile_block.reshape(self.ngroups, LANES))
+            .to(dev),
+            tile_nbytes_d.reshape(self.ngroups, LANES),
+            self.nb_pad, dev, self.devices)
+        del prepared
+        self.shards = self.loop.shards
+        self.symtab = self.loop.symtab
+        self.scan_inputs = self.loop.scan_inputs
         self.default_fetch_cap = TILE // 2
-
-        # Shards: groups [g0, g0 + n) of the lane-group tensors on their
-        # device.  Only the shards keep them: unsharded, the one shard's
-        # tensors are the full ones, without copies.
-        full = SimpleNamespace(
-            bl_t=bl_t.to(torch.int32), bd_t=bd_t.to(torch.int32),
-            lit_t=lit_t.to(torch.int32), dsym_t=dsym_t,
-            valid_t=valid_t.reshape(G, TILE, LANES),
-            # Per-lane block of the histogram reduction (used lanes only).
-            tile_block_d=torch.from_numpy(
-                self.tile_block.reshape(G, LANES)).to(dev).long(),
-            tile_nbytes_d=tile_nbytes_d.reshape(G, LANES).contiguous())
-        del bl_t, bd_t, lit_t, dsym_t, valid_t
-        devs = self.devices or [dev]
-        per = G // len(devs)
-        self.shards = [self._shard(full, d, i * per, per)
-                       for i, d in enumerate(devs)]
-
-    @staticmethod
-    def _shard(full, d, g0: int, n: int):
-        """The lane-group tensors of groups [g0, g0 + n) on device d."""
-        rows = slice(g0 * TILE, (g0 + n) * TILE)
-        grp = slice(g0, g0 + n)
-        sh = SimpleNamespace(
-            device=d, groups=n,
-            bl_t=full.bl_t[rows].to(d), bd_t=full.bd_t[rows].to(d),
-            lit_t=full.lit_t[rows].to(d),
-            valid_t=full.valid_t[grp].to(d),
-            tile_block_d=full.tile_block_d[grp].to(d),
-            tile_nbytes_d=full.tile_nbytes_d[grp].to(d),
-            lsym=torch.from_numpy(_LSYM).to(d),
-            lextra=torch.from_numpy(_LEXTRA).to(d),
-            dsym_extra=torch.from_numpy(_DSYM_EXTRA).to(d))
-        sh.lane_used = (sh.tile_nbytes_d > 0).reshape(n * LANES, 1)
-        # Flat gather indices of the per-lane cost tables (n, NSYM, LANES):
-        # bp_dcost[g,t,k,l] = dplus[g, dsym, l]; litcost[g,t,l] = ll[g, lit, l].
-        lane = torch.arange(LANES, device=d)
-        gidx = torch.arange(n, device=d)
-        sh.dsym_idx = ((gidx[:, None, None, None] * spec.NUM_D
-                        + full.dsym_t[rows].to(d).reshape(n, TILE, KBP, LANES)
-                        .long()) * LANES + lane)
-        sh.lit_idx = ((gidx[:, None, None] * spec.NUM_LL
-                       + sh.lit_t.reshape(n, TILE, LANES).long())
-                      * LANES + lane)
-        return sh
-
-    # --- one iteration -----------------------------------------------------
-
-    def _block_costs(self, stats_ll: torch.Tensor, stats_d: torch.Tensor):
-        """Per-block model costs (nb_pad, 288), (nb_pad, 32) of the stats.
-
-        Model costs are quantized to a 1/TIE_GRID-bit grid: per-tile path
-        sums of grid multiples stay exact in f32, so cost ties are real
-        ties and the kernel's relaxation order resolves them as the
-        reference DP does (squeeze.c:288-302).
-        """
-        ll_cost_b = costmodel.calculate_entropy(stats_ll)
-        d_cost_b = costmodel.calculate_entropy(stats_d)
-        if TIE_GRID:
-            grid = torch.tensor(TIE_GRID, dtype=torch.float32,
-                                device=self.device)
-            ll_cost_b = torch.round(ll_cost_b * grid) / grid
-            d_cost_b = torch.round(d_cost_b * grid) / grid
-        return ll_cost_b, d_cost_b
-
-    @staticmethod
-    def _shard_inputs(sh, ll_cost_b, d_cost_b):
-        """One shard's DP scan inputs from the per-block costs (on the
-        shard's device): (bl_t, bd_t, bp_dcost, litcost, lcost_vec)."""
-        G = sh.groups
-        ll_t = ll_cost_b[sh.tile_block_d]              # (G, LANES, 288)
-        d_t = d_cost_b[sh.tile_block_d]                # (G, LANES, 32)
-        lcost_vec = (ll_t[:, :, sh.lsym] + sh.lextra).permute(
-            0, 2, 1).reshape(G * scan_kernel.W, LANES).contiguous()
-        dplus = (d_t + sh.dsym_extra).permute(0, 2, 1).reshape(-1)
-        bp_dcost = dplus[sh.dsym_idx].reshape(G * TILE, KBP, LANES)
-        litcost = ll_t.permute(0, 2, 1).reshape(-1)[sh.lit_idx]
-        litcost = torch.where(sh.valid_t, litcost, scan_kernel.BIG)
-        return (sh.bl_t, sh.bd_t, bp_dcost.contiguous(),
-                litcost.reshape(G * TILE, LANES).contiguous(), lcost_vec)
-
-    def scan_inputs(self, stats_ll: torch.Tensor, stats_d: torch.Tensor):
-        """The DP scan's inputs of the first shard (all groups when
-        unsharded) under the entropy model of the stats.
-        Returns (bl_t, bd_t, bp_dcost, litcost, lcost_vec)."""
-        sh = self.shards[0]
-        return self._shard_inputs(sh, *(c.to(sh.device) for c in
-                                        self._block_costs(stats_ll,
-                                                          stats_d)))
-
-    def _one_iteration(self, stats_ll, stats_d):
-        costs = self._block_costs(stats_ll, stats_d)
-        hist, peps = None, []
-        for sh in self.shards:
-            G = sh.groups
-            ce, _ = scan_kernel.scan(*self._shard_inputs(
-                sh, *(c.to(sh.device) for c in costs)), groups=G)
-            hist_g, pep = scan_kernel.traceback(ce, sh.lit_t,
-                                                sh.tile_nbytes_d,
-                                                self.symtab, groups=G)
-            # Per-block histograms: an integer index_add over the lanes'
-            # blocks (counts are exact; no float matmul).
-            lanes_h = hist_g.reshape(G, scan_kernel.HBINS, LANES).permute(
-                0, 2, 1).reshape(G * LANES, scan_kernel.HBINS).long()
-            lanes_h = lanes_h * sh.lane_used
-            h = torch.zeros((self.nb_pad, scan_kernel.HBINS),
-                            dtype=torch.int64, device=sh.device)
-            h.index_add_(0, sh.tile_block_d.reshape(-1), lanes_h)
-            # The one reduction across shards: their integer block
-            # histograms summed on the control device.
-            h = h.to(self.device)
-            hist = h if hist is None else hist + h
-            peps.append(pep.reshape(G, TILE, LANES))
-        return hist[:, :spec.NUM_LL], hist[:, spec.NUM_LL:], peps
-
-    def _body(self, i: int, state, ll_maps, d_maps, rep_off):
-        (stats_ll, stats_d, best_cost, best_sll, best_sd,
-         last_cost, last_rand, ec, best_pe) = state
-
-        ll_hist, d_hist, peps = self._one_iteration(stats_ll, stats_d)
-
-        # Exact dynamic-block bits incl. 3-bit header (squeeze.c:492).
-        cost = 3 + costmodel.hist_dynamic_cost(ll_hist, d_hist)
-        improved = cost < best_cost
-        best_cost = torch.where(improved, cost, best_cost)
-        best_sll = torch.where(improved[:, None], stats_ll, best_sll)
-        best_sd = torch.where(improved[:, None], stats_d, best_sd)
-        best_pe = [torch.where(improved.to(sh.device)[sh.tile_block_d]
-                               [:, None, :], pep, bpe)
-                   for sh, pep, bpe in zip(self.shards, peps, best_pe)]
-
-        # Stats feedback (squeeze.c:503-517).  Counts are integers;
-        # trunc(new + 0.5*last) == new + last // 2 exactly.
-        new_ll = ll_hist.clone()
-        new_ll[:, 256] = 1
-        blended_ll = new_ll + stats_ll // 2
-        blended_ll[:, 256] = 1
-        blended_d = d_hist + stats_d // 2
-        blend = (last_rand != -1)[:, None]
-        next_ll = torch.where(blend, blended_ll, new_ll)
-        next_d = torch.where(blend, blended_d, d_hist)
-
-        stuck = (cost == last_cost) if i > 5 else torch.zeros_like(improved)
-        # Replica rows draw from a staggered window of the map stream.
-        ecc = torch.clamp(ec + rep_off, max=MAX_EVENTS - 1)
-        rnd_ll = torch.gather(best_sll, 1, ll_maps[ecc])
-        rnd_ll[:, 256] = 1
-        rnd_d = torch.gather(best_sd, 1, d_maps[ecc])
-        next_ll = torch.where(stuck[:, None], rnd_ll, next_ll)
-        next_d = torch.where(stuck[:, None], rnd_d, next_d)
-        ec = ec + stuck.long()
-        last_rand = torch.where(stuck, i, last_rand)
-
-        return (next_ll, next_d, best_cost, best_sll, best_sd,
-                cost, last_rand, ec, best_pe)
 
     # --- dispatch / collect ------------------------------------------------
 
@@ -482,38 +556,11 @@ class FusedSqueeze:
         sll, sd, rep_off = self.initial_stats(seed_ll, seed_d)
         ll_maps, d_maps = (torch.from_numpy(m).to(dev).long()
                            for m in costmodel.randomize_maps(MAX_EVENTS))
-        nbp = self.nb_pad
-
-        def zeros(*shape):
-            return torch.zeros(shape, dtype=torch.int64, device=dev)
-
-        state = (torch.from_numpy(sll).to(dev), torch.from_numpy(sd).to(dev),
-                 torch.full((nbp,), LARGE_COST, dtype=torch.int64,
-                            device=dev),
-                 zeros(nbp, spec.NUM_LL), zeros(nbp, spec.NUM_D), zeros(nbp),
-                 torch.full((nbp,), -1, dtype=torch.int64, device=dev),
-                 zeros(nbp),
-                 [torch.zeros((sh.groups, TILE, LANES), dtype=torch.int32,
-                              device=sh.device) for sh in self.shards])
-        rep_off_d = torch.from_numpy(rep_off).to(dev)
-        with span("zt.iterations"):
-            for i in range(int(numiterations)):
-                state = self._body(i, state, ll_maps, d_maps, rep_off_d)
-
-        (_, _, best_cost, best_sll, best_sd, _, _, _, best_pe) = state
-        # Compact each lane's sparse packed path rows to the front (a
-        # stable sort by emptiness keeps rows position-ordered), on each
-        # shard's device.  best_pe is also kept: a lane overflowing
-        # fetch_cap pulls it instead.
-        nsym, packed = [], []
-        for bpe in best_pe:
-            empty = (bpe == 0).to(torch.int32)
-            order = torch.sort(empty, dim=1, stable=True).indices
-            pe_c = torch.gather(bpe, 1, order)
-            nsym.append((1 - empty).sum(dim=1).to(dev))
-            packed.append(pe_c[:, :fetch_cap, :].to(dev))
-        out = (best_cost, best_sll, best_sd, torch.cat(nsym),
-               torch.cat(packed), best_pe)
+        state = self.loop.init_state(torch.from_numpy(sll).to(dev),
+                                     torch.from_numpy(sd).to(dev))
+        state = self.loop.run(state, numiterations, ll_maps, d_maps,
+                              torch.from_numpy(rep_off).to(dev))
+        out = self.loop.compact(state, fetch_cap)
         return (out, seed_ll, seed_d, numiterations, fetch_cap)
 
     def collect(self, handle):

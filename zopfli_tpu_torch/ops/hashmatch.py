@@ -159,6 +159,8 @@ def build_candidates(data_padded: torch.Tensor, block_cap: int,
     Returns (bp_len, bp_dist, best_len) int32 tensors on the input's
     device: (block_cap, max_bp), (block_cap, max_bp), (block_cap,).
     """
+    from .devsplit import table
+
     del sort_levels, sort_group
     dev = data_padded.device
     x = data_padded.long()
@@ -276,8 +278,8 @@ def build_candidates(data_padded: torch.Tensor, block_cap: int,
     recent_all = recent_all[:, instart:instart + L]           # (R, L)
     del prev_k, prev_k2, same, dist_sr, ok
 
-    lvl_arr = torch.as_tensor(np.asarray(recent_levels, np.int64),
-                              device=dev)
+    lvl_arr = table(f"recent_levels{tuple(recent_levels)}",
+                    np.asarray(recent_levels, np.int64), dev)
     valid_r = recent_all >= 0
     dist_r = torch.where(valid_r, pos.T - recent_all, WS + 1)
     ln_r = torch.where(valid_r, lvl_arr[:, None], 0)
@@ -291,7 +293,8 @@ def build_candidates(data_padded: torch.Tensor, block_cap: int,
         k2_rows = [i for i, lvl in enumerate(recent_levels)
                    if lvl >= recent_k2_min]
         n_k2 = len(k2_rows)
-        rows_a = torch.as_tensor(k2_rows, dtype=torch.int64, device=dev)
+        rows_a = table(f"k2_rows{tuple(k2_rows)}",
+                       np.asarray(k2_rows, np.int64), dev)
         prev2_i = torch.cat([full((nr, 2), -1), si[:, :-2]], dim=1)
         same2 = torch.cat(
             [torch.zeros((nr, 2), dtype=torch.bool, device=dev),

@@ -23,8 +23,9 @@ squeeze.c:528-560) over a whole master, the reference block-split search
 Steps 1-3 are SeedCore.parse and queue on the device without a host
 sync (seed_dispatch); steps 4-7 are SeedCore.finish (seed_finish), whose
 split search syncs once per probe round.  So a caller queues every
-master's parse before the first sync.  The candidate tables stay on the
-device and are reused by the fused squeeze.
+master's parse before the first sync.  SeedCore.finish_resident is steps
+4-7 without a host read (the megafused program's, ops.mega).  The
+candidate tables stay on the device and are reused by the fused squeeze.
 """
 
 from __future__ import annotations
@@ -216,28 +217,53 @@ class SeedCore:
     def finish(self, parsed):
         """Steps 4-7: split, per-block stats and costs (syncs)."""
         lit_stream, dist_stream, nsym_flat, nsym_t, bp_len, bp_dist = parsed
-        MB, DCAP = self.MB, self.DCAP
-        dev = lit_stream.device
         with span("zt.seed_wait"):          # waits for the seed parse
             nsym_total = int(nsym_t)
         devsplit.STATS["syncs"] += 1
 
         # ---- reference split search on the seed parse ----
         sp, npts, ll_ck, d_ck, bcum = devsplit.split_lz77_device(
-            lit_stream, dist_stream, DCAP, MB, nsym_total, return_ck=True)
+            lit_stream, dist_stream, self.DCAP, self.MB, nsym_total,
+            return_ck=True)
+        sp_t = devsplit.upload(np.asarray(sp, np.int64), lit_stream.device)
+        return (sp_t, npts) + self._block_stats(
+            lit_stream, dist_stream, nsym_total, sp_t, npts, ll_ck, d_ck,
+            bcum) + (nsym_flat, bp_len, bp_dist)
 
-        # ---- per-block seed stats + byte bounds + exact costs ----
+    def finish_resident(self, parsed):
+        """finish without reading the device (the megafused program's):
+        the split under device control (devsplit.split_lz77_resident),
+        then the same block bounds, stats and costs built from sp, npts
+        and nsym as device tensors.  Bit-equal to finish on the same
+        parse, with npts a 0-d tensor; also returns the split chain's
+        final state (its overflow flag and rounds)."""
+        lit_stream, dist_stream, nsym_flat, nsym_t, bp_len, bp_dist = parsed
+        sp, npts, ll_ck, d_ck, bcum, state = devsplit.split_lz77_resident(
+            lit_stream, dist_stream, self.DCAP, self.MB, nsym_t,
+            return_ck=True, return_state=True)
+        return (sp, npts) + self._block_stats(
+            lit_stream, dist_stream, nsym_t, sp, npts, ll_ck, d_ck,
+            bcum) + (nsym_flat, bp_len, bp_dist, state)
+
+    def _block_stats(self, lit_stream, dist_stream, nsym, sp_t, npts, ll_ck,
+                     d_ck, bcum):
+        """Steps 5-6 from the split points: (byte_splits, ll_h1, d_hist,
+        block_costs).  nsym and npts are ints or 0-d tensors on the
+        stream's device; nothing here reads the device."""
+        MB, DCAP = self.MB, self.DCAP
+        dev = lit_stream.device
         # Histograms come from the splitter's checkpointed cumulative
         # histograms differenced at the block boundaries.
-        sp_t = devsplit.upload(np.asarray(sp, np.int64), dev)
         byte_splits = bcum[torch.clamp(sp_t, max=DCAP)]   # (MB,)
         ll_sym, d_sym, _nb = devsplit.stream_symbols(
-            lit_stream, dist_stream, DCAP, nsym_total)
-        starts_sym = [min(x, nsym_total) for x in ([0] + sp)[:MB + 1]]
-        ends_sym = [min(x, nsym_total) for x in (sp + [DCAP + 1])[:MB + 1]]
+            lit_stream, dist_stream, DCAP, nsym)
+        zero = torch.zeros(1, dtype=torch.int64, device=dev)
+        sentinel = torch.full((1,), DCAP + 1, dtype=torch.int64, device=dev)
+        starts_sym = torch.clamp(torch.cat([zero, sp_t])[:MB + 1], max=nsym)
+        ends_sym = torch.clamp(torch.cat([sp_t, sentinel])[:MB + 1],
+                               max=nsym)
         pll, pd = devsplit.prefix_hist_at(
-            ll_ck, d_ck, ll_sym, d_sym,
-            devsplit.upload(np.asarray(starts_sym + ends_sym, np.int64), dev),
+            ll_ck, d_ck, ll_sym, d_sym, torch.cat([starts_sym, ends_sym]),
             DCAP)
         ll_hist = pll[MB + 1:] - pll[:MB + 1]
         d_hist = pd[MB + 1:] - pd[:MB + 1]
@@ -254,12 +280,13 @@ class SeedCore:
         ll_h1 = ll_hist.clone()
         ll_h1[:, 256] = 1
         # deflate.c:615-616: no fixed cost for stores over 1000 symbols.
-        fx = devsplit.fixed_cost(ll_h1, d_hist) if nsym_total <= 1000 \
-            else unc
+        fixed = devsplit.fixed_cost(ll_h1, d_hist)
+        small = nsym <= 1000
+        fx = (torch.where(small, fixed, unc)
+              if isinstance(small, torch.Tensor) else fixed if small else unc)
         dyn = 3 + costmodel.hist_dynamic_cost(ll_h1, d_hist)
         block_costs = torch.stack([unc, fx, dyn], dim=1)  # (MB+1, 3)
-        return (sp_t, npts, byte_splits, ll_h1, d_hist, block_costs,
-                nsym_flat, bp_len, bp_dist)
+        return byte_splits, ll_h1, d_hist, block_costs
 
 
 @functools.lru_cache(maxsize=None)
@@ -291,33 +318,39 @@ class SeedResult:
         self.max_lane_rows = int(np.max(_host(nsym_lane)))
         self.bp_len = bp_len
         self.bp_dist = bp_dist
-        # Stored-exit: every block (a) already prefers stored over the
-        # seed parse's fixed/dynamic encodings with a small absolute
-        # margin, and (b) has near-zero match coverage under the FIXED
-        # cost model.  (b) is the load-bearing part: the fixed model
-        # charges any distance only 5 bits, so if even it finds <2% of
-        # bytes coverable by matches, the stat model (which charges the
-        # true distance entropy, ~25+ bits on random data) will use fewer
-        # matches still -- its dynamic cost cannot drop below the seed's
-        # by more than the margin, and the final auto-type choice is
-        # stored either way.  Skip the iteration loop and emit stored.
-        c = self.block_costs.astype(np.float64)
-        nlit = self.seed_ll[:, :256].sum(axis=1).astype(np.float64)
-        blk_bytes = np.diff(np.asarray(self.bounds, np.float64))
-        cover = 1.0 - nlit / np.maximum(blk_bytes, 1)
-        # Stored must beat DYNAMIC with margin.  The fixed column aliases
-        # the uncompressed cost for stores over 1000 symbols
-        # (deflate.c:612-615 semantics), so compare against it only when
-        # it is a real fixed cost.  The true stream symbol count
-        # (deflate.c:615 uses lz77->size) excludes the forced per-block
-        # end-of-block symbol that seed_ll counts.
-        nsym_store = float(self.seed_ll.sum()) - (len(self.bounds) - 1)
-        margin = 16.0 + c[:, 0] / 8192.0      # ~0.012% of the block
-        dyn_ok = c[:, 0] + margin < c[:, 2]
-        fx_ok = (c[:, 0] + margin < c[:, 1]) if nsym_store <= 1000 \
-            else np.ones_like(dyn_ok)
-        self.all_stored = bool(
-            np.all(dyn_ok & fx_ok) and np.all(cover < 0.02))
+        self.all_stored = all_stored(self.block_costs, self.seed_ll,
+                                     self.bounds)
+
+
+def all_stored(block_costs, seed_ll, bounds) -> bool:
+    """The stored-exit gate of a master's seed parse.
+
+    Every block (a) already prefers stored over the seed parse's
+    fixed/dynamic encodings with a small absolute margin, and (b) has
+    near-zero match coverage under the FIXED cost model.  (b) is the
+    load-bearing part: the fixed model charges any distance only 5 bits,
+    so if even it finds <2% of bytes coverable by matches, the stat model
+    (which charges the true distance entropy, ~25+ bits on random data)
+    will use fewer matches still -- its dynamic cost cannot drop below the
+    seed's by more than the margin, and the final auto-type choice is
+    stored either way.  Skip the iteration loop and emit stored.
+    """
+    c = block_costs.astype(np.float64)
+    nlit = seed_ll[:, :256].sum(axis=1).astype(np.float64)
+    blk_bytes = np.diff(np.asarray(bounds, np.float64))
+    cover = 1.0 - nlit / np.maximum(blk_bytes, 1)
+    # Stored must beat DYNAMIC with margin.  The fixed column aliases the
+    # uncompressed cost for stores over 1000 symbols (deflate.c:612-615
+    # semantics), so compare against it only when it is a real fixed
+    # cost.  The true stream symbol count (deflate.c:615 uses lz77->size)
+    # excludes the forced per-block end-of-block symbol that seed_ll
+    # counts.
+    nsym_store = float(seed_ll.sum()) - (len(bounds) - 1)
+    margin = 16.0 + c[:, 0] / 8192.0      # ~0.012% of the block
+    dyn_ok = c[:, 0] + margin < c[:, 2]
+    fx_ok = (c[:, 0] + margin < c[:, 1]) if nsym_store <= 1000 \
+        else np.ones_like(dyn_ok)
+    return bool(np.all(dyn_ok & fx_ok) and np.all(cover < 0.02))
 
 
 def master_buffer(data: np.ndarray, instart: int, inend: int,

@@ -10,8 +10,6 @@ verify + native fallback.
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 
 from . import spec
@@ -118,34 +116,47 @@ def _entropy_f64(counts: np.ndarray) -> np.ndarray:
 # Device-seeded path: no host greedy parse.
 # ---------------------------------------------------------------------------
 
-def _check_no_mega() -> None:
-    """The megafused single-dispatch program (ZT_MEGA=1) is not ported."""
-    if os.environ.get("ZT_MEGA", "0") == "1":
-        raise NotImplementedError(
-            "ZT_MEGA=1 needs the megafused program (ops/mega.py), a later "
-            "slice of the port; unset ZT_MEGA")
+def _use_mega(inend: int, instart: int, devices) -> bool:
+    """A master takes the megafused program: ZT_MEGA=1, unsharded (the
+    counterpart of the reference's `mesh is None`) and at least
+    ops.mega.MEGA_MIN bytes."""
+    from .ops import mega as mega_mod
+    return (devices is None and mega_mod.enabled()
+            and inend - instart >= mega_mod.MEGA_MIN)
 
 
 def devseed_fire(data: np.ndarray, ranges, maxblocks: int = 15,
-                 window_starts=None, device="cuda"):
-    """Queue the seed parses for a chunk of masters, without a sync.
+                 window_starts=None, device="cuda", numiterations: int = 15,
+                 devices=None):
+    """Queue the seed parses (or megafused programs) for a chunk of
+    masters, without a sync.
 
     First half of devseed_dispatch, exposed so the caller can do host
     work (emitting the previous chunk) while the device runs the seed
     parses -- pass the result as devseed_dispatch(..., fired=...).
+
+    Large masters (>= ops.mega.MEGA_MIN, unsharded, ZT_MEGA=1) queue the
+    whole seed + split + squeeze pipeline as one megafused program;
+    smaller ones keep the two-phase path, whose squeeze shares lane
+    groups across the chunk.
     """
+    from .ops import mega as mega_mod
     from .ops import seed as seed_mod
 
-    _check_no_mega()
     if window_starts is None:
         window_starts = [0] * len(ranges)
     handles = []
     with span("zt.seed"):
         for (instart, inend), ws in zip(ranges, window_starts):
             cheap = seed_mod.probably_incompressible(data, instart, inend)
-            handles.append((cheap, ws, seed_mod.seed_dispatch(
-                data, instart, inend, maxblocks, cheap=cheap,
-                window_start=ws, device=device)))
+            if not cheap and _use_mega(inend, instart, devices):
+                handles.append(("mega", ws, mega_mod.mega_dispatch(
+                    data, instart, inend, maxblocks, numiterations,
+                    window_start=ws, device=device)))
+            else:
+                handles.append(("seed", cheap, ws, seed_mod.seed_dispatch(
+                    data, instart, inend, maxblocks, cheap=cheap,
+                    window_start=ws, device=device)))
     return handles
 
 
@@ -158,7 +169,8 @@ def devseed_dispatch(data: np.ndarray, ranges, numiterations: int,
     builds candidates, runs the fixed-cost seed parse, splits, and
     returns seed stats + stored-exit costs; the fused squeeze then reuses
     the candidate tables.  Masters whose every block prefers stored by a
-    clear margin skip the squeeze entirely.
+    clear margin skip the squeeze entirely.  Megafused masters
+    (devseed_fire) are only carried to devseed_collect.
 
     window_starts: per-range first byte the LZ77 halo may reach back to
     (multi-file batches concatenate independent inputs into one array).
@@ -170,6 +182,7 @@ def devseed_dispatch(data: np.ndarray, ranges, numiterations: int,
     Returns an opaque entry for devseed_collect().
     """
     from .ops import fused_engine
+    from .ops import mega as mega_mod
     from .ops import seed as seed_mod
 
     if numiterations < 1:
@@ -180,19 +193,33 @@ def devseed_dispatch(data: np.ndarray, ranges, numiterations: int,
     # Every seed parse goes in flight before any result is pulled: the
     # device stays busy and the host syncs only in the splits.
     handles = fired if fired is not None else devseed_fire(
-        data, ranges, maxblocks, window_starts, device=device)
-    seeds = []
+        data, ranges, maxblocks, window_starts, device=device,
+        numiterations=numiterations, devices=devices)
+    seeds = [None] * len(ranges)     # SeedResult for the fused path
+    megas = [None] * len(ranges)     # mega handle (pulled in collect)
     with span("zt.split"):
-        for (instart, inend), (cheap, ws, h) in zip(ranges, handles):
+        for i, ((instart, inend), tagged) in enumerate(zip(ranges,
+                                                           handles)):
+            if tagged[0] == "mega":
+                megas[i] = tagged[2]
+                continue
+            _, cheap, ws, h = tagged
             sr = seed_mod.seed_finish(h)
             if cheap and not sr.all_stored:
-                # Probe false positive: redo with full-quality candidates.
+                # Probe false positive: redo with full-quality candidates
+                # (megafused when the master qualifies).
+                if _use_mega(inend, instart, devices):
+                    megas[i] = mega_mod.mega_dispatch(
+                        data, instart, inend, maxblocks, numiterations,
+                        window_start=ws, device=device)
+                    continue
                 sr = seed_mod.seed_master(data, instart, inend, maxblocks,
                                           cheap=False, window_start=ws,
                                           device=device)
-            seeds.append(sr)
+            seeds[i] = sr
 
-    live = [i for i, sr in enumerate(seeds) if not sr.all_stored]
+    live = [i for i, sr in enumerate(seeds)
+            if sr is not None and not sr.all_stored]
     fs = handle = None
     if live:
         masters = [(ranges[i][0], ranges[i][1], seeds[i].bounds)
@@ -212,24 +239,47 @@ def devseed_dispatch(data: np.ndarray, ranges, numiterations: int,
         seed_ll = np.vstack([seeds[i].seed_ll for i in live])
         seed_d = np.vstack([seeds[i].seed_d for i in live])
         handle = fs.dispatch(seed_ll, seed_d, numiterations)
-    return (ranges, seeds, fs, handle)
+    return (ranges, seeds, fs, handle, megas)
 
 
 def devseed_collect(entry, numiterations: int, trace=None):
     """Blocking half of devseed_dispatch.
 
     Returns one result per master: ("stores", [LZ77Store...]) for
-    squeezed masters, ("stored", instart, inend) for stored-exit ones.
+    squeezed masters, ("stores", [LZ77Store...], split2) for megafused
+    ones (split2 = the device's second-split decision, or None after a
+    verify fallback), ("stored", instart, inend) for stored-exit ones.
+    Megafused masters pass no trace hooks (as in the reference).
     """
-    ranges, seeds, fs, handle = entry
+    from .ops import mega as mega_mod
+
+    ranges, seeds, fs, handle, megas = entry
+    results = [None] * len(ranges)
+    # Megafused masters were queued first: pull them first.
+    for i, mh in enumerate(megas):
+        if mh is None:
+            continue
+        mr = mega_mod.mega_finish(mh)
+        instart, inend = ranges[i]
+        if mr.all_stored:
+            results[i] = ("stored", instart, inend)
+        else:
+            fails = VERIFY_FAILS[0]
+            stores = fused_collect(mr, None, numiterations)[0]
+            # The device's second-split decision holds for the device's
+            # own parse only; after a hash-collision fallback replaced a
+            # block's parse, the host splits again.
+            split2 = mr.split2 if VERIFY_FAILS[0] == fails else None
+            results[i] = ("stores", stores, split2)
     if fs is not None:
         all_stores = fused_collect(fs, handle, numiterations, trace=trace)
-    results = []
     k = 0
-    for sr, (instart, inend) in zip(seeds, ranges):
+    for i, (sr, (instart, inend)) in enumerate(zip(seeds, ranges)):
+        if sr is None:
+            continue               # megafused master, handled above
         if sr.all_stored:
-            results.append(("stored", instart, inend))
+            results[i] = ("stored", instart, inend)
         else:
-            results.append(("stores", all_stores[k]))
+            results[i] = ("stores", all_stores[k])
             k += 1
     return results
