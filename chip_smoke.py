@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only oracle  # build + phase 8 only
     python3 chip_smoke.py --only parallel  # build + phase 9 only
     python3 chip_smoke.py --only mega      # build + phase mega only
+    python3 chip_smoke.py --only split     # build + the split search only
 
 Phases, each printed as one JSON line:
   1. environment: the card's name and power limit, the kernels' build.
@@ -18,13 +19,12 @@ Phases, each printed as one JSON line:
        - hist_cost on the seed's per-block histograms, on one batch of
          split-probe histograms, and on seeded random batches of 1, 18
          and 2048 rows with edge rows;
-       - autotype_cost on the first probe rounds of the seed's device
-         split and its largest round, and on seeded random ranges with
-         edge cases (ends on and beside checkpoints, ends at ncap, empty
-         and reversed ranges, ranges inside one checkpoint) under each
-         fixed-cost gate (the whole store's, true and false, and one
-         per range); one probe round under torch.profiler must be
-         one kernel and two copies;
+       - autotype_cost on the first rounds of the seed's device split
+         and its largest round, and on seeded random ranges with edge
+         cases (ends on and beside checkpoints, ends at ncap, empty and
+         reversed ranges, ranges inside one checkpoint) under each
+         fixed-cost gate (the whole store's, true and false, and one per
+         range);
        - where a K3 row's cycles go, phase by phase, in the kernel the
          port runs (experiments/exp_hist_cost_phases.py, which measures
          the first design with `--variants first`);
@@ -32,24 +32,26 @@ Phases, each printed as one JSON line:
          breakpoints, odd tiles and lane counts, cut paths).
      Outputs must be bit-equal, and one warm scan + traceback pair must
      not sync the stream.  The device split of the seed parse must equal
-     the host splitter on the same stream.  autotype_cost's device-count
-     entry must equal its host-count entry and plain version on the same
-     ranges.  The split under device control (split_step + that entry,
-     queued without a sync and checked under
-     torch.cuda.set_sync_debug_mode("error")) must give the host-
-     controlled split on the seed parse, a squeeze's output stream and
-     synthetic streams (under 10 and under 1000 symbols, linear rounds
-     only, 200,000 random symbols), and split_step must equal
-     split_step_plain step by step there; its time per launch comes from
-     torch.profiler.  Times are CUDA-event means
+     the host splitter on the same stream.  The split_search kernel (a
+     whole search in one launch) must equal its plain version on the
+     seed parse, a squeeze's output stream and synthetic streams (under
+     10 and under 1000 symbols, linear rounds only, 200,000 random
+     symbols): at steps = 1, 2, ... against one plain step each (state,
+     ranges, gates; the rounds' costs against autotype_cost), the whole
+     search 5 times against the plain search on CPU copies, capped at
+     half its steps (S_OVERFLOW), queued under
+     torch.cuda.set_sync_debug_mode("error"); one search under
+     torch.profiler must be one kernel.  Times are CUDA-event means
      over warm launches (for the two cost kernels, `ms` is of launches
      captured in a CUDA graph, so that their Python wrapper is out of
      the time, and `ms_eager` of eager calls back to back).
   3. main path: zopfli_tpu_torch.compress(1 MiB, "gzip", --i15) on the
      card at the defaults (device seed): it must round-trip through
      zlib, launch scan and traceback 15 + (seed programs) times,
-     hist_cost at least once and autotype_cost once per split probe
-     round, call no host greedy parse, fall back to
+     hist_cost at least once, split_search twice (the two splits, one
+     pull each; each equal to the plain search on CPU copies of its
+     stream) and autotype_cost never, call no host greedy parse, fall
+     back to
      the host engine for no block, and stay within 2% of the native
      engine's size.  One warm ZT_SEED=greedy run is timed beside it.
   mega: ZT_MEGA=1 at 1 MiB (G=1, nb_pad 64) and 2 MiB at
@@ -57,8 +59,8 @@ Phases, each printed as one JSON line:
      default two-phase path in turns: bytes equal, zlib round trip, no
      verify fallback, per-block best costs equal to FusedSqueeze's on the
      same seed, mega_dispatch under set_sync_debug_mode("error"), K1/K2
-     15 + 1 launches, split_step 2*N_MAX, autotype_cost 2*N_MAX + 2 and
-     no host-controlled split round; warm walls of both paths.
+     15 + 1 launches, split_search 2, autotype_cost 2 (the cost totals),
+     no host read of a split; warm walls of both paths.
   4. profile: one more default compress under torch.profiler -- host
      time per pipeline stage, device time per kernel, the device's idle
      share.  It fails only if the profiler fails or sees no device time.
@@ -72,7 +74,8 @@ Phases, each printed as one JSON line:
      device engine and once on the native one (which compresses the
      jobs one after another; its slowest jobs are printed): every
      output must decode to its input's pixels, K1 == K2 > 0 launches,
-     hist_cost > 0, autotype_cost == split rounds > 0, no verify
+     hist_cost > 0, split_search == searches > 0, autotype_cost 0, no
+     verify
      fallback, no host greedy parse, and the batch's bytes within 2% of
      the native engine's.  The fused loop's K1 inputs at the most lane
      groups of the batch are kept from the first run, and K1 and K2 are
@@ -104,10 +107,10 @@ Phases, each printed as one JSON line:
      compress_multihost in a world-size-1 gloo group (bytes equal to
      compress), and two processes on this card in a gloo group (2.1 MB,
      --i2; rank 0's bytes equal to the single-process ones).
-Then a `kernels` JSON line (with phase 3's launches -- split_step's
-from phase mega, whose launches every entry has in `launches_mega` --,
-phase 6's in `launches_png`, for K1 and K2 phase 6's check at its shape in
-`png_shape` and phase 9's at G=4 in `g4_shape`; dp_scan with the
+Then a `kernels` JSON line (with phase 3's launches, phase mega's in
+`launches_mega`, phase 6's in `launches_png`, for K1 and K2 phase 6's
+check at its shape in `png_shape` and phase 9's at G=4 in `g4_shape`;
+split_search's cooperative grid in `grid_clusters`; dp_scan with the
 launches of phase 8's deflate, the large-tile traceback entry with those
 of its ZT_TILE=32768 run), and last {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, if any phase fails or no GPU is
@@ -553,24 +556,12 @@ def _seed_checks(data, dev, second):
     report["parse_s"] = time.time() - t0
     lit_s, dist_s = (t[:nsym].cpu().numpy().astype(np.uint16)
                      for t in parsed[:2])
-    # The device split; its probe rounds are recorded for the checks of
-    # the autotype_cost kernel below.
-    rounds = []
-    probe_round = devsplit.probe_round
-
-    def recording(tabs, pa, pb, ncap, small):
-        rounds.append((pa.copy(), pb.copy(), small))
-        return probe_round(tabs, pa, pb, ncap, small)
-
+    # The device split: one split_search launch, one pull.
     before = dict(devsplit.STATS)
-    devsplit.probe_round = recording
-    try:
-        t0 = time.time()
-        sp, npts = devsplit.split_lz77_device(parsed[0], parsed[1],
-                                              core.DCAP, mb, nsym)
-        report["device_split_s"] = time.time() - t0
-    finally:
-        devsplit.probe_round = probe_round
+    t0 = time.time()
+    sp, npts = devsplit.split_lz77_device(parsed[0], parsed[1], core.DCAP,
+                                          mb, nsym)
+    report["device_split_s"] = time.time() - t0
     report["device_split_rounds"] = (devsplit.STATS["rounds"]
                                      - before["rounds"])
     report["device_split_syncs"] = devsplit.STATS["syncs"] - before["syncs"]
@@ -628,28 +619,39 @@ def _seed_checks(data, dev, second):
           "replaces": sk.REPLACES["hist_cost"], "max_abs_err": k3_err,
           "ms": k3_ms, "ms_eager": k3_eager, "plain_ms": k3_plain,
           "bound_ms": bound, "bound_by": by, "library_ms": None, "rows": B}
+    # The split search (one kernel a search) on the seed parse, on a
+    # second split's stream and on synthetic streams; the seed parse's
+    # rounds then serve the autotype_cost checks.
+    streams = {"seed_parse": (parsed[0], parsed[1], core.DCAP, nsym)}
+    streams.update(_split_streams(second, dev))
+    search_checks, search = _split_search_checks(streams, mb, dev)
+    checks.update(search_checks)
+    report["split_search"] = search["report"]
     at, at_checks, at_report = _autotype_checks(
-        devsplit, sk, tabs, rounds, core.DCAP, nsym, dev)
+        devsplit, sk, tabs, search["rounds"], core.DCAP, nsym, dev)
     checks.update(at_checks)
     report["autotype_cost"] = at_report
     report["hist_cost_phases"] = _phase_breakdowns(
         {"probe_19": k3_sets["probe_batch"],
          "seed_blocks": k3_sets["seed_blocks"],
          "random_2048": k3_sets["random_2048"]}, sk, checks)
+    return report, checks, {"hist_cost": k3, "autotype_cost": at,
+                            "split_search": search["entry"]}
 
-    # The split under device control (the mega path's), on the seed
-    # parse, on a second split's stream and on synthetic streams.
-    streams = {"seed_parse": (parsed[0], parsed[1], core.DCAP, nsym)}
+
+def _split_streams(second, dev) -> dict:
+    """A second split's stream (a squeeze's parse) and the synthetic
+    streams, padded as the device split pads them, on `dev`."""
+    import numpy as np
+    import torch
+
+    streams = {}
     for name, (lit, dist) in [("second_split", second)] + list(
             _synthetic_streams(np.random.default_rng(17)).items()):
         ll, dd, ncap, n = _pad_stream(lit, dist)
         streams[name] = (torch.from_numpy(ll).to(dev),
                          torch.from_numpy(dd).to(dev), ncap, n)
-    chain_checks, chain = _split_chain_checks(streams, mb, dev)
-    checks.update(chain_checks)
-    report["split_chain"] = chain["report"]
-    return report, checks, {"hist_cost": k3, "autotype_cost": at,
-                            "split_step": chain["entry"]}
+    return streams
 
 
 def _range_hists(devsplit, tabs, a, b, ncap):
@@ -690,12 +692,10 @@ def _k3_ops(ll, d) -> int:
 def _autotype_checks(devsplit, sk, tabs, rounds, ncap, nsym, dev):
     """The autotype_cost kernel against autotype_costs_plain on the
     split's first probe rounds and its largest one, and on seeded random
-    ranges with edge cases under each fixed-cost gate; its time, bound,
-    and the device work of one probe round under torch.profiler."""
+    ranges with edge cases under each fixed-cost gate; its time and
+    bound."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     checks, report = {}, {}
     big = max(range(len(rounds)), key=lambda i: len(rounds[i][0]))
@@ -723,7 +723,6 @@ def _autotype_checks(devsplit, sk, tabs, rounds, ncap, nsym, dev):
                                              small)
         checks[f"autotype_cost_{name}"] = torch.equal(got, want)
         err = max(err, float((got - want).abs().max()))
-    checks.update(_autotype_dev_checks(devsplit, tabs, sets, ncap, dev))
 
     a, b, small = rounds[0]
     ab = torch.from_numpy(np.stack([a, b]).astype(np.int64)).to(dev)
@@ -743,21 +742,6 @@ def _autotype_checks(devsplit, sk, tabs, rounds, ncap, nsym, dev):
     ms_eager = cuda_time_ms(call, reps=50)
     bound, by = _autotype_bound(devsplit, tabs, a, b, ncap)
 
-    # One probe round = one pinned upload, one kernel, one pull.
-    devsplit.probe_round(tabs, a, b, ncap, small)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        devsplit.probe_round(tabs, a, b, ncap, small)
-        torch.cuda.synchronize()
-    dev_events = [e.name for e in prof.events()
-                  if e.device_type == DeviceType.CUDA]
-    copies = [n for n in dev_events if "Memcpy" in n or "memcpy" in n]
-    kernels = [n for n in dev_events if n not in copies]
-    report["probe_round_device_work"] = dev_events
-    checks["probe_round_one_kernel"] = (
-        len(kernels) == 1 and "autotype_cost" in kernels[0]
-        and len(copies) == 2)
     report["rows"] = len(a)
     report["rounds_checked"] = [k for k in sets if k.startswith("round_")]
     entry = {"name": "autotype_cost", "route": "cuda",
@@ -767,44 +751,6 @@ def _autotype_checks(devsplit, sk, tabs, rounds, ncap, nsym, dev):
              "bound_ms": bound, "bound_by": by, "library_ms": None,
              "rows": len(a)}
     return entry, checks, report
-
-
-def _autotype_dev_checks(devsplit, tabs, sets, ncap, dev) -> dict:
-    """autotype_cost's device-count entry (the count read on the card, the
-    grid sized for MAX_RANGES) bit-equal to the host-count entry and to
-    the plain version on the same ranges, padded past the count with
-    ranges that must stay untouched."""
-    import numpy as np
-    import torch
-
-    checks = {}
-    R = devsplit.MAX_RANGES
-    for name, (a, b, small) in sets.items():
-        n = len(a)
-        if n > R:
-            continue
-        gate = (small if isinstance(small, torch.Tensor)
-                else torch.full((n,), bool(small), device=dev))
-        starts = torch.zeros(R, dtype=torch.int64, device=dev)
-        ends = torch.zeros(R, dtype=torch.int64, device=dev)
-        rows = torch.zeros(R, dtype=torch.bool, device=dev)
-        starts[:n] = torch.from_numpy(np.asarray(a, np.int64)).to(dev)
-        ends[:n] = torch.from_numpy(np.asarray(b, np.int64)).to(dev)
-        rows[:n] = gate
-        state = torch.zeros(devsplit.S_HEAD + 1, dtype=torch.int64,
-                            device=dev)
-        state[devsplit.S_COUNT] = n
-        costs = torch.full((R,), -7, dtype=torch.int64, device=dev)
-        devsplit.autotype_costs_counted(tabs, starts, ends, rows, state,
-                                        costs, ncap)
-        host = devsplit.autotype_costs(*tabs, starts[:n], ends[:n], ncap,
-                                       rows[:n].contiguous())
-        plain = devsplit.autotype_costs_plain(*tabs, starts[:n], ends[:n],
-                                              ncap, rows[:n])
-        checks[f"autotype_dev_{name}"] = (
-            torch.equal(costs[:n], host) and torch.equal(host, plain)
-            and bool((costs[n:] == -7).all()))
-    return checks
 
 
 def _pad_stream(lit, dist, floor: int = 1024):
@@ -824,7 +770,7 @@ def _pad_stream(lit, dist, floor: int = 1024):
 
 
 def _synthetic_streams(rng) -> dict:
-    """Host (litlens, dists) streams for the split chain: fewer than 10
+    """Host (litlens, dists) streams for the split search: fewer than 10
     symbols, at most 1000 (the fixed-cost gate on), segments short enough
     for linear rounds only, and a long stream of random matches and
     literals (probe rounds)."""
@@ -844,13 +790,31 @@ def _synthetic_streams(rng) -> dict:
             "long_random": stream(200_000, 0.35)}
 
 
-def _split_chain_checks(streams: dict, mb: int, dev) -> tuple[dict, dict]:
-    """The split chain (zt_split_step + autotype_cost's device-count
-    entry, queued without a sync) against the host-controlled split on
-    each stream, and the kernel held against split_step_plain step by
-    step (the plain step applied to each step's input state and costs).
-    The whole plain chain (plain costs on the host) is held too where
-    the stream is short.  Per-launch device times from torch.profiler."""
+def _split_search_checks(streams: dict, mb: int, dev) -> tuple[dict, dict]:
+    """The split_search kernel (a whole search in one launch) on each
+    stream, held bit-equal to its plain version:
+      - step by step: the kernel at steps = k (k = 1 up to one past the
+        step that finishes the search) against one plain step
+        (split_step_plain) applied to the kernel's state after k - 1
+        steps and that run's last round's costs: the state (overflow flag
+        included) and the round's ranges and gates; the round's costs
+        against the autotype_cost kernel's host-count entry on the same
+        ranges (held against the plain cost stack in _autotype_checks);
+      - the whole search, 5 times, against the plain search
+        (split_search_plain) on CPU copies of the stream: the final state
+        bit-equal every time (an ordering race would show as a run that
+        differs);
+      - a cap of half the steps a search needs sets S_OVERFLOW, equal to
+        the plain search capped alike, and the pull raises;
+      - split_lz77_resident queued under set_sync_debug_mode("error");
+      - one search under torch.profiler is one kernel (and the state's
+        upload, the sync words' memset and the pull).
+    Times on the first stream (the seed parse): the kernel's device time
+    (torch.profiler), the wrapper's (CUDA events), the wall of a search
+    with its pull, the plain search on the host; the bound sums each
+    round's autotype_cost bound and each step's bytes.  Returns the
+    checks and {"report", "entry", "rounds"}: the first stream's rounds
+    as (starts, ends, small) host arrays."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
@@ -859,139 +823,175 @@ def _split_chain_checks(streams: dict, mb: int, dev) -> tuple[dict, dict]:
     from zopfli_tpu_torch.ops import devsplit
     from zopfli_tpu_torch.ops import scan_kernel as sk
 
-    checks, report = {}, {}
+    d = devsplit
+    checks, report, seed_rounds = {}, {}, []
+    first = next(iter(streams))
     for name, (lit_t, dist_t, ncap, nsym) in streams.items():
-        nsym_t = torch.tensor(nsym, dtype=torch.int64, device=dev)
-        sp_h, npts_h = devsplit.split_lz77_device(lit_t, dist_t, ncap, mb,
-                                                  nsym)
-        host = [int(x) for x in sp_h[:npts_h]]
+        nsym_t = torch.full((), nsym, dtype=torch.int64, device=dev)
         tabs = _split_tabs(devsplit, lit_t, dist_t, ncap, nsym_t)
-        # Step by step: the kernel's state and round against the plain
-        # step's on the same input state and costs.
-        R = devsplit.MAX_RANGES
-        st = devsplit.split_state(mb, ncap, dev)
-        costs, starts, ends = (torch.zeros(R, dtype=torch.int64,
-                                           device=dev) for _ in range(3))
-        rows = torch.zeros(R, dtype=torch.bool, device=dev)
-        steps = devsplit.n_max(mb, ncap)
-        same, used, sizes, step_bytes = True, 0, [], []
-        for k in range(steps):
-            pst, pcost, ps, pe, pr = (t.to("cpu", copy=True) for t in (
-                st, costs, starts, ends, rows))
-            devsplit.split_step(st, nsym_t, costs, starts, ends, rows, mb,
-                                ncap, k == steps - 1)
-            before = pst.clone()
-            devsplit.split_step_plain(pst, nsym, pcost, ps, pe, pr, mb,
-                                      ncap, k == steps - 1)
-            step_bytes.append(_split_step_bytes(devsplit, before, pst))
-            c = int(pst[devsplit.S_COUNT])
+        cpu_tabs = tuple(t.cpu() for t in tabs)
+        t0 = time.time()
+        plain = d.split_search_plain(cpu_tabs, nsym, ncap, mb)[0]
+        plain_s = time.time() - t0
+        rounds = int(plain[d.S_ROUNDS])
+        # Step by step.
+        same, sizes, step_bytes, bounds = True, [], [], []
+        prev = d.split_state(mb, ncap, "cpu")
+        prev_costs = torch.zeros(d.MAX_RANGES, dtype=torch.int64)
+        for k in range(1, rounds + 3):
+            got = [x.cpu() for x in d.split_search(
+                tabs, nsym_t, ncap, mb, steps=k, return_round=True)]
+            want = prev.clone()
+            want[d.S_OVERFLOW] = 0   # the cap of the run at k - 1
+            before = want.clone()
+            ps, pe = (torch.zeros(d.MAX_RANGES, dtype=torch.int64)
+                      for _ in range(2))
+            pr = torch.zeros(d.MAX_RANGES, dtype=torch.bool)
+            d.split_step_plain(want, nsym, prev_costs, ps, pe, pr, mb, ncap,
+                               True)
+            step_bytes.append(_split_step_bytes(devsplit, before, want))
+            c = int(want[d.S_COUNT])
+            same &= (torch.equal(got[0], want)
+                     and torch.equal(got[2][:c], ps[:c])
+                     and torch.equal(got[3][:c], pe[:c])
+                     and torch.equal(got[4][:c], pr[:c]))
             if c:
                 sizes.append(c)
-            same &= (torch.equal(st.cpu(), pst)
-                     and torch.equal(starts[:c].cpu(), ps[:c])
-                     and torch.equal(ends[:c].cpu(), pe[:c])
-                     and torch.equal(rows[:c].cpu(), pr[:c]))
-            devsplit.autotype_costs_counted(tabs, starts, ends, rows, st,
-                                            costs, ncap)
-            used = k + 1
-            if pst[devsplit.S_FINISHED] and k + 1 < steps:
-                # One step past the end must do nothing.
-                pst = st.to("cpu", copy=True)
-                devsplit.split_step(st, nsym_t, costs, starts, ends, rows,
-                                    mb, ncap, False)
-                pst[devsplit.S_COUNT] = 0
-                same &= torch.equal(st.cpu(), pst)
-                break
-        checks[f"split_step_vs_plain_{name}"] = bool(same)
-        # The chain as the mega path queues it: no sync inside.
+                a, b = ps[:c].numpy(), pe[:c].numpy()
+                ab = torch.from_numpy(np.stack([a, b])).to(dev)
+                host_entry = d.autotype_costs(*tabs, ab[0], ab[1], ncap,
+                                              nsym <= 1000).cpu()
+                same &= torch.equal(got[1][:c], host_entry)
+                if name == first:
+                    seed_rounds.append((a, b, nsym <= 1000))
+                    bounds.append(_autotype_bound(devsplit, tabs, a, b,
+                                                  ncap))
+            prev, prev_costs = got[0], got[1]
+        checks[f"split_search_steps_{name}"] = bool(
+            same and bool(prev[d.S_FINISHED]) and len(sizes) == rounds)
+        # The whole search, 5 times, against the plain search.
+        runs = [d.split_search(tabs, nsym_t, ncap, mb).cpu()
+                for _ in range(5)]
+        checks[f"split_search_vs_plain_{name}"] = (
+            all(torch.equal(r, plain) for r in runs)
+            and int(plain[d.S_OVERFLOW]) == 0
+            and int(plain[d.S_FINISHED]) == 1)
+        # No sync inside the mega path's call.
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
-            sp, npts, fin = devsplit.split_lz77_resident(
+            _sp, _npts, fin = d.split_lz77_resident(
                 lit_t, dist_t, ncap, mb, nsym_t, return_state=True)
         finally:
             torch.cuda.set_sync_debug_mode(0)
-        got = [int(x) for x in sp[:int(npts)].cpu()]
-        checks[f"split_chain_vs_host_{name}"] = (
-            got == host and int(fin[devsplit.S_OVERFLOW]) == 0)
-        r = {"symbols": nsym, "ncap": ncap, "split_points": got,
-             "rounds": int(fin[devsplit.S_ROUNDS]), "steps": steps,
-             "steps_checked": used, "round_sizes": sizes,
-             "step_bytes_until_finished": sum(step_bytes)}
-        if nsym <= 1000:
-            cpu = tuple(t.cpu() for t in tabs)
-            pfin = devsplit.split_chain(cpu, torch.tensor(nsym), ncap, mb)
-            checks[f"split_chain_plain_{name}"] = torch.equal(
-                pfin[devsplit.S_HEAD:], fin[devsplit.S_HEAD:].cpu())
-        report[name] = r
-
-    # Times on the first stream (the seed parse): the chain's wall with
-    # its enqueue, and each kernel's device time per launch.
-    name = next(iter(streams))
-    lit_t, dist_t, ncap, nsym = streams[name]
-    nsym_t = torch.tensor(nsym, dtype=torch.int64, device=dev)
-    chain = lambda: devsplit.split_lz77_resident(lit_t, dist_t, ncap, mb,
-                                                 nsym_t, return_state=True)
-    chain_ms = cuda_time_ms(chain, reps=3)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fin = chain()[2]
+        checks[f"split_resident_no_sync_{name}"] = torch.equal(fin.cpu(),
+                                                               plain)
+        npts = int(plain[d.S_NPTS])
+        report[name] = {
+            "symbols": nsym, "ncap": ncap, "rounds": rounds,
+            "split_points": plain[d.S_HEAD:d.S_HEAD + npts].tolist(),
+            "round_sizes": sizes, "steps_checked": len(step_bytes),
+            "plain_search_host_s": plain_s}
+        if name != first:
+            continue
+        # The overflow cap.
+        cap = max(1, (rounds + 1) // 2)
+        capped = d.split_search(tabs, nsym_t, ncap, mb, steps=cap).cpu()
+        pcap = d.split_search_plain(cpu_tabs, nsym, ncap, mb, cap)[0]
+        try:
+            d.pull_split(capped, mb)
+            raised = False
+        except RuntimeError:
+            raised = True
+        checks["split_search_overflow_cap"] = (
+            torch.equal(capped, pcap) and int(capped[d.S_OVERFLOW]) == 1
+            and raised)
+        # Times.
+        search = lambda: d.split_search(tabs, nsym_t, ncap, mb)
+        events_ms = cuda_time_ms(search, reps=10)
+        walls = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            d.pull_split(search(), mb)
+            walls.append((time.time() - t0) * 1e3)
         torch.cuda.synchronize()
-    step_us = [e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA
-               and "split_step" in e.name]
-    cost_us = [e.time_range.elapsed_us() for e in prof.events()
-               if e.device_type == DeviceType.CUDA
-               and "autotype_cost" in e.name]
-    rounds = int(fin[devsplit.S_ROUNDS])
-    # The plain step on the card's tensors (it reads the state to the
-    # host each step), over the same chain.
-    st = devsplit.split_state(mb, ncap, dev)
-    R = devsplit.MAX_RANGES
-    costs, starts, ends = (torch.zeros(R, dtype=torch.int64, device=dev)
-                           for _ in range(3))
-    rows = torch.zeros(R, dtype=torch.bool, device=dev)
-    tabs = _split_tabs(devsplit, lit_t, dist_t, ncap, nsym_t)
-    plain_s, nplain = 0.0, 0
-    while not int(st[devsplit.S_FINISHED]):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        devsplit.split_step_plain(st, nsym_t, costs, starts, ends, rows, mb,
-                                  ncap, False)
-        torch.cuda.synchronize()
-        plain_s += time.time() - t0
-        nplain += 1
-        devsplit.autotype_costs_counted(tabs, starts, ends, rows, st, costs,
-                                        ncap)
-    plain_ms = plain_s * 1e3 / nplain
-    # Bytes of the chain's launches: each step up to the one that
-    # finished the search as the plain step's trace counts them, then 8
-    # a step (the finished flag).
-    used = report[name]["steps_checked"]
-    nbytes_ = (report[name]["step_bytes_until_finished"]
-               + 8 * (len(step_us) - used))
-    bound, by = bytes_bound(nbytes_ / max(len(step_us), 1), 0)
-    report[name].update({
-        "chain_ms": chain_ms, "chain_launches": len(step_us) + len(cost_us),
-        "split_step_device_us_total": sum(step_us),
-        "split_step_us_active": (sum(step_us[:rounds + 1])
-                                 / max(rounds + 1, 1)),
-        "split_step_us_idle": (sum(step_us[rounds + 1:])
-                               / max(len(step_us) - rounds - 1, 1)),
-        "autotype_dev_us_total": sum(cost_us),
-        "autotype_dev_us_idle": (sum(cost_us[rounds:])
-                                 / max(len(cost_us) - rounds, 1))})
-    entry = {"name": "split_step", "route": "cuda",
-             "source": "zopfli_tpu_torch/csrc/split_ctl.cu",
-             "replaces": sk.REPLACES["split_step"], "max_abs_err": 0.0,
-             "ms": sum(step_us) / max(len(step_us), 1) / 1e3,
-             "ms_active": report[name]["split_step_us_active"] / 1e3,
-             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-             "library_ms": None, "steps": len(step_us), "rounds": rounds}
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                d.pull_split(search(), mb)
+            torch.cuda.synchronize()
+        events = [e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        kern_us = [e.time_range.elapsed_us() for e in events
+                   if "split_search" in e.name]
+        names = [e.name for e in events]
+        copies = [n for n in names if "emcpy" in n]
+        fills = [n for n in names if "emset" in n]
+        kernels = [n for n in names if n not in copies + fills]
+        checks["search_one_kernel"] = (
+            len(kernels) == 3 and len(kern_us) == 3 and len(copies) == 6)
+        bound_ops = sum(b for b, by in bounds if by == "operations")
+        bound = (sum(b for b, _ in bounds)
+                 + bytes_bound(sum(step_bytes), 0)[0])
+        report[name].update({
+            "search_device_ms": [u / 1e3 for u in kern_us],
+            "search_events_ms": events_ms, "search_wall_ms": walls,
+            "device_work_per_search": names[:len(names) // 3],
+            "grid_clusters": d.search_clusters(dev),
+            "bound_ms": bound, "step_bytes": sum(step_bytes)})
+        entry = {"name": "split_search", "route": "cuda",
+                 "source": "zopfli_tpu_torch/csrc/split_search.cu",
+                 "replaces": sk.REPLACES["split_search"],
+                 "max_abs_err": 0.0,
+                 "ms": sum(kern_us) / max(len(kern_us), 1) / 1e3,
+                 "ms_events": events_ms, "wall_ms": min(walls),
+                 "plain_ms": plain_s * 1e3,
+                 "plain_where": "host CPU, split_search_plain",
+                 "bound_ms": bound,
+                 "bound_by": ("operations" if bound_ops > bound / 2
+                              else "bytes"),
+                 "library_ms": None, "rounds": rounds,
+                 "grid_clusters": report[name]["grid_clusters"]}
     if not all(checks.values()):
         entry["max_abs_err"] = None
-    return checks, {"report": report, "entry": entry}
+    return checks, {"report": report, "entry": entry, "rounds": seed_rounds}
+
+
+def phase_split(data, dev="cuda") -> None:
+    """The split search alone (--only split): the seed parse of phase 3's
+    input, a squeeze's parse of it after two iterations and the
+    synthetic streams, through _split_search_checks."""
+    import numpy as np
+    import torch
+
+    from zopfli_tpu_torch import native
+    from zopfli_tpu_torch.deflate import (Options, scaled_maxblocks,
+                                          split_master)
+    from zopfli_tpu_torch.ops import fused_engine, hashmatch, seed
+    from zopfli_tpu_torch.squeeze_batched import greedy_seed_stats
+
+    n = len(data)
+    mb = scaled_maxblocks(Options(), n)
+    bounds = split_master(Options(numiterations=ITERATIONS, engine="native"),
+                          data, 0, n, native.greedy)
+    fs = fused_engine.FusedSqueeze(data, [(0, n, bounds)], device=dev)
+    seed_ll, seed_d = greedy_seed_stats(data, fs.block_bounds, native.greedy)
+    parses = fs.run(seed_ll, seed_d, 2)[0]
+    second = tuple(np.concatenate([p[i] for p in parses]) for i in (0, 1))
+    buf, cap, min_pos, inend_real = seed.master_buffer(data, 0, n)
+    core = seed.make_seed_core(
+        cap, mb, tuple(sorted(hashmatch.current_knobs().items())))
+    parsed = core.parse(torch.from_numpy(buf).to(dev), min_pos, inend_real)
+    streams = {"seed_parse": (parsed[0], parsed[1], core.DCAP,
+                              int(parsed[3]))}
+    streams.update(_split_streams(second, dev))
+    checks, search = _split_search_checks(streams, mb, dev)
+    ok = all(checks.values())
+    emit({"phase": "split", "ok": ok, "checks": checks,
+          "entry": search["entry"], **search["report"]})
+    if not ok:
+        raise RuntimeError(f"split search check failed: {checks}")
 
 
 def _split_step_bytes(devsplit, before, after) -> int:
@@ -1249,11 +1249,16 @@ def _compress_run(raw: bytes, label: str, dev) -> tuple[dict, bytes]:
 
 def _launches_ok(r, seeds) -> bool:
     """K1/K2 once per iteration and per seed program, K3 `hist_cost` at
-    least once, `autotype_cost` once per probe round of the splits."""
-    ln = r["launches"]
+    least once; the splits: one `split_search` launch a search, two on
+    one master (the first split and the second), rounds read from their
+    states, one pull a search (and the seed's symbol count), no
+    `autotype_cost` launch (no host-controlled round)."""
+    ln, sp = r["launches"], r["split"]
     return (ln["scan"] == ln["traceback"] == ITERATIONS + seeds
             and ln["hist_cost"] > 0
-            and ln["autotype_cost"] == r["split"]["rounds"] > 0)
+            and ln["split_search"] == sp["searches"] == 2
+            and sp["rounds"] > 0 and sp["syncs"] == 2 + seeds
+            and ln["autotype_cost"] == 0)
 
 
 def _default_path_ok(r) -> bool:
@@ -1281,6 +1286,38 @@ def _counted_greedy():
     return calls, restore
 
 
+def _recorded_searches():
+    """Record every split search of a run: (calls, restore); a call is
+    (tabs, nsym, ncap, maxblocks, final state)."""
+    from zopfli_tpu_torch.ops import devsplit
+
+    search = devsplit.split_search
+    calls = []
+
+    def recording(tabs, nsym, ncap, maxblocks, *a, **k):
+        out = search(tabs, nsym, ncap, maxblocks, *a, **k)
+        calls.append((tabs, nsym, ncap, maxblocks, out))
+        return out
+
+    devsplit.split_search = recording
+
+    def restore():
+        devsplit.split_search = search
+    return calls, restore
+
+
+def _searches_vs_plain(calls) -> list[bool]:
+    """Each recorded search's final state against the plain search
+    (split_search_plain) on CPU copies of its stream."""
+    import torch
+
+    from zopfli_tpu_torch.ops import devsplit
+
+    return [torch.equal(state.cpu(), devsplit.split_search_plain(
+        tuple(t.cpu() for t in tabs), int(nsym), ncap, mb)[0])
+        for tabs, nsym, ncap, mb, state in calls]
+
+
 def phase_main(data, dev="cuda"):
     """compress() on the card at the defaults, and one greedy-seeded
     run: round trip, launches, greedy calls, fallbacks, size."""
@@ -1291,9 +1328,16 @@ def phase_main(data, dev="cuda"):
     raw = data.tobytes()
     runs, outs = [], []
     for label in ("cold", "warm"):
-        run, out = _compress_run(raw, label, dev)
+        calls, restore = _recorded_searches()
+        try:
+            run, out = _compress_run(raw, label, dev)
+        finally:
+            restore()
         runs.append(run)
         outs.append(out)
+    # The warm run's two searches (the seed's split and the second split)
+    # against the plain search on CPU copies of their streams.
+    searches_vs_plain = _searches_vs_plain(calls)
     old = os.environ.get("ZT_SEED")
     os.environ["ZT_SEED"] = "greedy"
     try:
@@ -1313,6 +1357,7 @@ def phase_main(data, dev="cuda"):
           and greedy_run["roundtrip"] and greedy_run["verify_fails"] == 0
           and _launches_ok(greedy_run, 0)
           and outs[1] == outs[0] and ratio <= 1.02
+          and len(searches_vs_plain) == 2 and all(searches_vs_plain)
           and len(greedy_out) / len(native_out) <= 1.02
           and zlib.decompress(native_out, 31) == raw)
     emit({"phase": "main", "ok": ok, "input_bytes": len(raw),
@@ -1322,6 +1367,7 @@ def phase_main(data, dev="cuda"):
           "greedy_warm_seconds": greedy_run["seconds"],
           "output_bytes": len(outs[0]), "native_bytes": len(native_out),
           "greedy_bytes": len(greedy_out),
+          "searches_vs_plain": searches_vs_plain,
           "native_seconds": native_secs, "size_vs_native": ratio,
           "greedy_size_vs_native": len(greedy_out) / len(native_out),
           "fetch_retries": runs[0]["fetch_retries"],
@@ -1406,9 +1452,9 @@ def _mega_case(raw: bytes, dev) -> dict:
     ln = m["launches"]
     launches_ok = (ln["scan"] == ln["traceback"] == ITERATIONS + 1
                    and ln["hist_cost"] > 0
-                   and ln["split_step"] == 2 * steps
-                   and ln["autotype_cost"] == 2 * steps + 2
-                   and m["split"]["rounds"] == 0
+                   and ln["split_search"] == m["split"]["searches"] == 2
+                   and ln["autotype_cost"] == 2
+                   and m["split"]["rounds"] > 0
                    and m["split"]["syncs"] == 0
                    and m["seed_programs"] == 1)
 
@@ -1459,7 +1505,7 @@ def _mega_case(raw: bytes, dev) -> dict:
         "nb": mr.nb, "nb_total": mr.nb_total, "n_max": steps,
         "rows_used_max": int(used.max()),
         "blocks_best_past_64": sum(rb >= 64 for rb in best),
-        "chain_rounds": mr.chain_rounds, "output_bytes": len(outs["mega"]),
+        "search_rounds": mr.search_rounds, "output_bytes": len(outs["mega"]),
         "split2": mr.split2, "checks": checks,
         "warm_seconds": {"mega": [runs["mega"]["seconds"],
                                   runs["mega_2"]["seconds"]],
@@ -1480,8 +1526,8 @@ def phase_mega(data, dev="cuda") -> dict:
     blocks: rows past 64 carry tiles).  Bytes equal to the two-phase
     path's in the same call, zlib round trip, no verify fallback,
     per-block costs equal to FusedSqueeze's, no sync inside
-    mega_dispatch, launches as predicted (K1/K2 15 + 1; split_step
-    2*N_MAX; autotype_cost 2*N_MAX + 2; no host-controlled split round).
+    mega_dispatch, launches as predicted (K1/K2 15 + 1; split_search 2;
+    autotype_cost 2; no host read of a split).
     Returns the 1 MiB mega run's launches."""
     from zopfli_tpu_torch.ops import mega
 
@@ -1539,7 +1585,7 @@ def phase_many(dev="cuda") -> None:
     ok = all(r["roundtrip"] and r["verify_fails"] == 0
              and r["launches"]["scan"] > 0 and r["launches"]["traceback"] > 0
              and r["launches"]["hist_cost"] > 0
-             and r["launches"]["autotype_cost"] > 0
+             and r["launches"]["split_search"] > 0
              for r in results.values())
     emit({"phase": "many", "ok": ok, **results})
     if not ok:
@@ -1667,8 +1713,10 @@ def phase_png(inputs, dev="cuda") -> tuple[dict, dict]:
     ok = (all(r["pixels_equal"] for r in runs.values())
           and all(r["launches"]["scan"] == r["launches"]["traceback"] > 0
                   and r["launches"]["hist_cost"] > 0
-                  and r["launches"]["autotype_cost"]
-                  == r["split"]["rounds"] > 0
+                  and r["launches"]["split_search"]
+                  == r["split"]["searches"] > 0
+                  and r["split"]["rounds"] > 0
+                  and r["launches"]["autotype_cost"] == 0
                   and r["verify_fails"] == 0 and r["greedy_calls"] == 0
                   for r in dev_runs)
           and outs["device_warm"] == outs["device_cold"]
@@ -2357,9 +2405,9 @@ def main(argv) -> int:
 
         phase_env(zt_scan)
         data = np.frombuffer(corpus_1mib(), dtype=np.uint8)
-        if only in ("oracle", "parallel", "mega"):
+        if only in ("oracle", "parallel", "mega", "split"):
             {"oracle": phase_oracle, "parallel": phase_parallel,
-             "mega": phase_mega}[only](
+             "mega": phase_mega, "split": phase_split}[only](
                 *(() if only == "parallel" else (data,)))
             return 0
         kernels = phase_kernels(data)
@@ -2375,10 +2423,8 @@ def main(argv) -> int:
         oracle = phase_oracle(data)
         g4 = phase_parallel()
         for k, entry in kernels.items():
-            # The mega path's own count for its split_step kernel; the
-            # default path's for the rest, with the mega path's beside.
-            entry["launches"] = (mega_launches[k] if k == "split_step"
-                                 else launches[k])
+            # The default path's count, with the mega path's beside.
+            entry["launches"] = launches[k]
             entry["launches_mega"] = mega_launches[k]
             entry["launches_png"] = png_launches[k]
             if k in ("scan", "traceback"):

@@ -2,10 +2,11 @@
 splitter.
 
 The same greedy LZ77 streams go through zopfli_tpu.ops.devsplit (one
-jitted program on the CPU), the port's ops.devsplit (host control, costs
-on the tensors' device, here the CPU's plain cost stack) and the port's
-host splitter blocks.block_split_lz77.  Split points must be equal; the
-histogram and cost helpers bit-equal."""
+jitted program on the CPU), the port's ops.devsplit (the split_search
+kernel's plain version on CPU tensors: split_step_plain and the plain
+cost stack in turn) and the port's host splitter
+blocks.block_split_lz77.  Split points must be equal; the histogram and
+cost helpers bit-equal."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -130,10 +131,57 @@ def test_prefix_hist_and_autotype_costs_bit_equal(streams):
 
 
 def test_split_counts_rounds_and_syncs(streams):
+    """One search, one read of its result; its rounds come from the
+    search's final state."""
     gl, gd = streams["text60k"]
     before = dict(ds.STATS)
     ds.block_split_lz77_device(gl.astype(np.int32), gd.astype(np.int32), 15,
                                device="cpu")
     rounds = ds.STATS["rounds"] - before["rounds"]
     assert ds.STATS["searches"] == before["searches"] + 1
-    assert rounds > 0 and ds.STATS["syncs"] - before["syncs"] == rounds
+    assert rounds > 0 and ds.STATS["syncs"] - before["syncs"] == 1
+
+
+def _search_stream(name):
+    """(litlens, dists) int32: under 10 symbols (no round), two runs of
+    60 symbols the split separates with linear rounds only, and 1100
+    random literals past LINEAR_MAX (probe rounds).  Small: every linear
+    round of the JAX program costs its 2047 ranges."""
+    rng = np.random.default_rng(77)
+    if name == "under_10":
+        return rng.integers(0, 256, 7).astype(np.int32), np.zeros(7, np.int32)
+    if name == "probe":
+        return (rng.integers(0, 256, 1100).astype(np.int32),
+                np.zeros(1100, np.int32))
+    runs = [(rng.integers(0, 4, 60), np.zeros(60, np.int64)),
+            (rng.integers(100, 258, 60), rng.integers(1, 4000, 60))]
+    return tuple(np.concatenate(p).astype(np.int32) for p in zip(*runs))
+
+
+@pytest.mark.parametrize("name", ["under_10", "linear_only", "probe"])
+def test_search_equals_jax_split(name):
+    """The plain search (split_search on CPU tensors), capped at N_MAX
+    steps, against the JAX package's split_lz77_device on the same
+    stream: the same split points (none for the random literals, whose
+    probe rounds reject the split), no overflow, rounds only where the
+    stream has 10 symbols or more."""
+    lit, dist = _search_stream(name)
+    n = len(lit)
+    ll = np.zeros(FLOOR, np.int32)
+    dd = np.zeros(FLOOR, np.int32)
+    ll[:n] = lit
+    dd[:n] = dist
+    nsym = torch.tensor(n)
+    tabs = ds._tables(torch.from_numpy(ll), torch.from_numpy(dd), FLOOR,
+                      nsym)
+    state = ds.split_search(tabs, nsym, FLOOR, 15, steps=ds.n_max(15, FLOOR))
+    jsp, jnpts = jds.split_lz77_device(jnp.asarray(ll), jnp.asarray(dd),
+                                       FLOOR, 15, jnp.int32(n))
+    npts = int(state[ds.S_NPTS])
+    assert npts == int(jnpts)
+    assert (state[ds.S_HEAD:ds.S_HEAD + 15].tolist()
+            == np.where(np.arange(15) < npts, np.asarray(jsp),
+                        FLOOR + 1).tolist())
+    assert int(state[ds.S_OVERFLOW]) == 0 and int(state[ds.S_FINISHED])
+    rounds = int(state[ds.S_ROUNDS])
+    assert rounds > 0 if n >= 10 else rounds == npts == 0

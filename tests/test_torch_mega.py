@@ -4,7 +4,7 @@ Reference: zopfli_tpu.ops.mega in interpret mode on the CPU, one device
 (_LOCAL_MESH pinned to [None]), with MEGA_MIN patched to 1000 on both
 sides so that a small master takes the megafused path.  The port:
 zopfli_tpu_torch.ops.mega on the CPU (plain versions of every kernel, the
-split searches as chains of split_step_plain steps).  Every MegaResult
+split searches as split_search_plain).  Every MegaResult
 field, the collected parses and costs, the device's second-split
 decision and the compressed bytes in all three formats must be equal.
 The pure pieces (_geometry, _replica_seeds) are also held against the
@@ -150,7 +150,7 @@ def test_mega_collect_equals_reference(part, monkeypatch):
 def test_case_has_blocks_replicas_and_no_overflow(monkeypatch):
     mr = _ours("deflate", monkeypatch)["mr"]
     assert mr.nb >= 4 and mr.nb_total > mr.nb and not mr.all_stored
-    assert all(r > 0 for r in mr.chain_rounds)
+    assert all(r > 0 for r in mr.search_rounds)
     G, nb_pad = mega.lane_geometry(65536, MB, 2)
     assert len(mr.tile_block) == G * mega.LANES and nb_pad == 64
 

@@ -1,31 +1,32 @@
-"""The block-split search under device control, on the CPU.
+"""The block-split search as the card runs it, on the CPU.
 
-The port's ops.devsplit runs ZopfliBlockSplitLZ77 two ways: with its
-control on the host (split_lz77_device, the default path's; held equal to
-the JAX splitter and the host splitter in tests/test_torch_devsplit.py)
-and as a chain of split steps and cost rounds that never reads the device
-(split_lz77_resident, the megafused program's).  On CPU tensors a step is
-split_step_plain, the plain version of the split_step kernel
-(csrc/split_ctl.cu), and a round's costs autotype_costs_plain.  Here the
-chain, stepped to its bound N_MAX, must give the host-controlled split
-points and never set its overflow flag; the seed program's device-resident
-finish must equal its host finish bit for bit.  The megafused program's
-second split (ZT_MEGA=1, MEGA_MIN patched to 1000) must equal the host
-splitter's on the collected stores at nb_pad 128 (the JAX program's
-32-bit stream key holds 64 lane blocks; its assert checks only MB + 1 <=
-64), and its decision must be dropped after a verify fallback.  Here the
-blocks and replicas fill fewer than 64 lane blocks: the 64-bit key's
-order past 64 is held
-by tests/test_torch_mega.py::test_stream_offsets_order_past_64_lane_blocks
+The port's ops.devsplit runs ZopfliBlockSplitLZ77 as one launch of the
+split_search kernel (csrc/split_search.cu) on the card: its control and
+the costs of every round it issues.  On CPU tensors split_search takes
+split_search_plain, split_step_plain (the kernel's step) and
+autotype_costs_plain (a round's costs) in turn.  Here the plain search
+must give the host splitter's split points (tests/test_torch_devsplit.py holds it against the JAX
+package's split_lz77_device), never set its overflow flag, and stop at
+the step that finishes the search; a search of k steps must equal k plain steps and
+their rounds' costs, and a cap below the steps a search needs must set
+S_OVERFLOW; the seed program's device-resident finish must equal its
+host finish bit for bit.  The megafused program's second split
+(ZT_MEGA=1, MEGA_MIN patched to 1000) must equal the host splitter's on
+the collected stores at nb_pad 128 (the JAX program's 32-bit stream key
+holds 64 lane blocks; its assert checks only MB + 1 <= 64), and its
+decision must be dropped after a verify fallback.  Here the blocks and
+replicas fill fewer than 64 lane blocks: the 64-bit key's order past 64
+is held by
+tests/test_torch_mega.py::test_stream_offsets_order_past_64_lane_blocks
 on the CPU, and in a program run by chip_smoke.py's mega phase ("wide":
-90 lane blocks, bytes equal to the two-phase path)."""
+90 lane blocks, bytes equal to the two-phase path).  Tolerance: exact."""
 
 import numpy as np
 import pytest
 import torch
 
 from zopfli_tpu_torch import blocks, native, squeeze_batched
-from zopfli_tpu_torch.lz77 import concat_stores
+from zopfli_tpu_torch.lz77 import LZ77Store, concat_stores
 from zopfli_tpu_torch.ops import devsplit as ds
 from zopfli_tpu_torch.ops import mega, seed
 
@@ -97,53 +98,99 @@ def test_streams_reach_both_round_kinds():
     assert len(STREAMS["long_synthetic"][0]) > 50 * ds.LINEAR_MAX
 
 
-@pytest.mark.parametrize("name", sorted(STREAMS))
-def test_chain_to_n_max_equals_host_split(name):
-    """Every one of the N_MAX steps runs (the steps after the search
-    finished, and their cost rounds, must change nothing)."""
-    ll, dd, ncap, n = _padded(*STREAMS[name])
-    sp, npts = ds.split_lz77_device(ll, dd, ncap, MB, n)
+def _tabs(ll, dd, ncap, n):
     nsym = torch.tensor(n)
     ll_sym, d_sym, nb = ds.stream_symbols(ll, dd, ncap, nsym)
     ll_ck, d_ck, bcum = ds.checkpoints(ll_sym, d_sym, nb, ncap, nsym)
-    tabs = (ll_ck, d_ck, ll_sym, d_sym, bcum)
+    return (ll_ck, d_ck, ll_sym, d_sym, bcum), nsym
+
+
+def _host_split(lit, dist):
+    """The host splitter's points on a stream (its bytes made up: the
+    split reads only the symbols)."""
+    n = len(lit)
+    data = np.zeros(int(np.where(dist > 0, lit, 1).sum()), np.uint8)
+    return blocks.block_split_lz77(LZ77Store(data, lit, dist, 0), MB)
+
+
+@pytest.mark.parametrize("name", sorted(STREAMS))
+def test_chain_to_n_max_equals_host_split(name):
+    """The plain search allowed its N_MAX steps: the host splitter's
+    points, no overflow, and it stops at the step that finishes the
+    search (one step past its rounds); steps past that one change
+    nothing."""
+    lit, dist = STREAMS[name]
+    ll, dd, ncap, n = _padded(lit, dist)
+    tabs, nsym = _tabs(ll, dd, ncap, n)
+    state, costs, starts, ends, rows = ds.split_search(
+        tabs, nsym, ncap, MB, return_round=True)
+    assert int(state[ds.S_OVERFLOW]) == 0 and int(state[ds.S_FINISHED])
+    npts = int(state[ds.S_NPTS])
+    sp = state[ds.S_HEAD:ds.S_HEAD + MB].tolist()
+    assert sp[:npts] == _host_split(lit, dist)
+    assert sp[npts:] == [ncap + 1] * (MB - npts)
+    for _ in range(3):
+        before = state.clone()
+        ds.split_step_plain(state, nsym, costs, starts, ends, rows, MB,
+                            ncap, True)
+        assert torch.equal(state, before)
+    # split_lz77_resident and split_lz77_device (the same search) agree.
+    sp2, npts2, fin = ds.split_lz77_resident(ll, dd, ncap, MB, nsym,
+                                             return_state=True)
+    assert sp2.tolist() == sp and int(npts2) == npts
+    assert torch.equal(fin, state)
+    assert ds.split_lz77_device(ll, dd, ncap, MB, n) == (sp, npts)
+
+
+def _stepped(tabs, nsym, ncap, k):
+    """k plain steps, each followed by its round's costs, as split_search
+    composes them."""
     state = ds.split_state(MB, ncap, "cpu")
     R = ds.MAX_RANGES
     costs, starts, ends = (torch.zeros(R, dtype=torch.int64)
                            for _ in range(3))
     rows = torch.zeros(R, dtype=torch.bool)
-    steps = ds.n_max(MB, ncap)
-    finished_at = None
-    for k in range(steps):
-        before = state.clone()
-        ds.split_step(state, nsym, costs, starts, ends, rows, MB, ncap,
-                      k == steps - 1)
-        if finished_at is not None:
-            before[ds.S_COUNT] = 0
-            assert torch.equal(state, before), k
-        ds.autotype_costs_counted(tabs, starts, ends, rows, state, costs,
-                                  ncap)
-        if finished_at is None and state[ds.S_FINISHED]:
-            finished_at = k
-    assert finished_at is not None and finished_at < steps - 1
-    assert int(state[ds.S_OVERFLOW]) == 0
-    assert int(state[ds.S_NPTS]) == npts
-    assert state[ds.S_HEAD:ds.S_HEAD + MB].tolist() == sp
-    # split_lz77_resident (the chain with its early stop) agrees.
-    sp2, npts2, fin = ds.split_lz77_resident(ll, dd, ncap, MB, nsym,
-                                             return_state=True)
-    assert sp2.tolist() == sp and int(npts2) == npts
-    assert int(fin[ds.S_ROUNDS]) == int(state[ds.S_ROUNDS]) == finished_at
+    for j in range(k):
+        ds.split_step_plain(state, nsym, costs, starts, ends, rows, MB, ncap,
+                            j == k - 1)
+        c = int(state[ds.S_COUNT])
+        if c == 0:
+            break
+        costs[:c] = ds.autotype_costs_plain(*tabs, starts[:c], ends[:c],
+                                            ncap, rows[:c])
+    return state, costs, starts, ends, rows
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 8, 17, 20])
+def test_steps_prefix_equals_plain_steps(k):
+    """split_search(steps=k) is k steps and their rounds' costs: state,
+    the last round's ranges, gates and costs (what chip_smoke.py holds
+    the kernel to at steps = 1, 2, ...).  The stream's search takes 17
+    steps (16 rounds): 20 passes its end."""
+    ll, dd, ncap, n = _padded(*STREAMS["greedy_text"])
+    tabs, nsym = _tabs(ll, dd, ncap, n)
+    got = ds.split_search(tabs, nsym, ncap, MB, steps=k, return_round=True)
+    want = _stepped(tabs, nsym, ncap, k)
+    assert torch.equal(got[0], want[0])
+    c = int(want[0][ds.S_COUNT])
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g[:c], w[:c])
+    finished = bool(want[0][ds.S_FINISHED])
+    assert finished == (k >= 17)
+    assert int(got[0][ds.S_OVERFLOW]) == (not finished)
+    assert int(got[0][ds.S_ROUNDS]) == min(k, 16)
 
 
 def test_short_chain_sets_overflow_and_raises():
+    """A cap below the steps the search needs sets S_OVERFLOW, and the
+    host's pull raises on it."""
     ll, dd, ncap, n = _padded(*STREAMS["greedy_text"])
-    nsym = torch.tensor(n)
-    ll_sym, d_sym, nb = ds.stream_symbols(ll, dd, ncap, nsym)
-    ll_ck, d_ck, bcum = ds.checkpoints(ll_sym, d_sym, nb, ncap, nsym)
-    tabs = (ll_ck, d_ck, ll_sym, d_sym, bcum)
+    tabs, nsym = _tabs(ll, dd, ncap, n)
+    state = ds.split_search(tabs, nsym, ncap, MB, steps=3)
+    assert int(state[ds.S_OVERFLOW]) == 1 and not int(state[ds.S_FINISHED])
+    assert int(state[ds.S_ROUNDS]) == 3
     with pytest.raises(RuntimeError, match="did not finish"):
-        ds.split_chain(tabs, nsym, ncap, MB, steps=3)
+        ds.pull_split(state, MB)
 
 
 def test_probe_round_bound_holds_for_any_narrowing():
@@ -166,26 +213,6 @@ def test_probe_round_bound_holds_for_any_narrowing():
             assert rounds <= ds.probe_rounds_max(span), (span, rounds)
     assert ds.probe_rounds_max((1 << 20) + ds.CKPT) == 9
     assert ds.n_max(16, (1 << 20) + ds.CKPT) == 2 * 16 * 9 + 1
-
-
-def test_counted_costs_leave_the_rest_untouched():
-    ll, dd, ncap, n = _padded(*STREAMS["greedy_text"])
-    nsym = torch.tensor(n)
-    ll_sym, d_sym, nb = ds.stream_symbols(ll, dd, ncap, nsym)
-    ll_ck, d_ck, bcum = ds.checkpoints(ll_sym, d_sym, nb, ncap, nsym)
-    tabs = (ll_ck, d_ck, ll_sym, d_sym, bcum)
-    rng = np.random.default_rng(9)
-    R = ds.MAX_RANGES
-    a = torch.from_numpy(rng.integers(0, n, R))
-    b = torch.clamp(a + torch.from_numpy(rng.integers(-5, 900, R)), max=n)
-    rows = torch.from_numpy(rng.random(R) < 0.5)
-    state = ds.split_state(MB, ncap, "cpu")
-    state[ds.S_COUNT] = 23
-    costs = torch.full((R,), -7, dtype=torch.int64)
-    ds.autotype_costs_counted(tabs, a, b, rows, state, costs, ncap)
-    want = ds.autotype_costs_plain(*tabs, a[:23], b[:23], ncap, rows[:23])
-    assert torch.equal(costs[:23], want)
-    assert bool((costs[23:] == -7).all())
 
 
 def test_finish_resident_equals_finish():

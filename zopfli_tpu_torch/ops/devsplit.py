@@ -6,24 +6,19 @@ and finds its best single split point with a 9-probe recursive search
 (FindMinimum, blocksplitter.c:43-96), where each probe evaluates the
 exact auto-type block cost of both halves (deflate.c:585-621).  Range
 histograms come from checkpointed cumulative histograms (the lz77.h:56-61
-trick as device tensors) and every probe round's costs are ONE launch on
-the card (autotype_costs: range histograms, stored, fixed and exact
-dynamic costs in the autotype_cost kernel, csrc/hist_cost.cu).
+trick as device tensors).
 
 The JAX package compiles the whole search into one program
-(while_loop / cond).  Here the accept/mark-done loop and FindMinimum's
-narrowing run on the host: each round (probe_round) uploads its probe
-pairs, launches one batched cost evaluation (the segment's own cost
-folded into its first batch) and pulls the few costs the next round
-needs -- one host sync per round.  The control reads only those integer
-costs, so the split points equal the JAX program's.
-
-split_lz77_resident runs the same search with its control on the device
-(the megafused program's, ops.mega): the loop's state lives in one
-tensor, one split_step kernel (csrc/split_ctl.cu) advances it by a round
-and writes the next round's ranges and their count, and autotype_cost's
-device-count entry costs them.  The host queues n_max such pairs without
-a sync; the ones after the search finished do nothing.
+(while_loop / cond).  So does the port: the loop's state lives in one
+int64 tensor, and one launch of the split_search kernel
+(csrc/split_search.cu) runs the whole search on the card, its control
+and the costs of every round it issues (the autotype_cost row code).
+The host reads the final state once (split_lz77_device, the default
+path's two splits) or not at all (split_lz77_resident, the megafused
+program's, ops.mega).  Its plain version, split_search_plain, runs
+split_step_plain and autotype_costs_plain in turn on CPU tensors.
+autotype_costs (one launch of the autotype_cost kernel for a batch of
+ranges) serves callers that cost ranges they already know.
 
 Semantics notes (bit-exact to the reference):
   - auto-type cost = min(uncompressed, fixed, dynamic); the fixed cost
@@ -65,11 +60,12 @@ _LL_EXTRA[257:286] = spec.LENGTH_SYMBOL_EXTRA_BITS
 _D_EXTRA = np.zeros(spec.NUM_D, np.int64)
 _D_EXTRA[:30] = spec.DIST_SYM_EXTRA_BITS
 
-# Split searches run, their host-controlled probe rounds (one batched
-# cost evaluation each) and host syncs (result pulls), and the rounds of
-# the searches under device control (read from their chains' states when
-# the megafused program's results are pulled), for reports.
-STATS = {"searches": 0, "rounds": 0, "syncs": 0, "chain_rounds": 0}
+# Split searches run (split_search calls: one kernel launch each on the
+# card), their rounds (read from each search's final state when the host
+# pulls it, the megafused program's with its results) and the host reads
+# of the splits (one a search on the default path, plus the seed's symbol
+# count), for reports.
+STATS = {"searches": 0, "rounds": 0, "syncs": 0}
 
 
 def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -169,8 +165,8 @@ def autotype_costs(ll_ck, d_ck, ll_sym, d_sym, bcum, starts, ends,
                    ncap: int, small_store):
     """Exact auto-type bits of blocks [starts[i], ends[i]), batched.
 
-    Tensors as built by split_lz77_device(return_ck=True) +
-    stream_symbols; starts/ends (B,) symbol indices in [0, ncap];
+    Tensors as built by checkpoints + stream_symbols; starts/ends (B,)
+    symbol indices in [0, ncap];
     small_store is the GetFixedCost gate (deflate.c:612-615) -- a bool
     for the whole-store rule (what the split uses) or a (B,) bool tensor
     for the per-block-store rule.
@@ -251,134 +247,19 @@ def autotype_costs_plain(ll_ck, d_ck, ll_sym, d_sym, bcum, starts, ends,
     return torch.where(ends > starts, cost, BIG)
 
 
-def probe_round(tabs, a: np.ndarray, b: np.ndarray, ncap: int,
-                small_store) -> np.ndarray:
-    """Auto-type costs of blocks [a[i], b[i]): one probe round of the
-    split -- one pinned upload of the pairs, one cost launch (on the
-    card) and one pull.  tabs = (ll_ck, d_ck, ll_sym, d_sym, bcum)."""
-    ll_ck, d_ck, ll_sym, d_sym, bcum = tabs
-    ab = upload(np.stack([a, b]).astype(np.int64), ll_ck.device)
-    c = autotype_costs(ll_ck, d_ck, ll_sym, d_sym, bcum, ab[0], ab[1], ncap,
-                       small_store)
-    STATS["rounds"] += 1
-    STATS["syncs"] += 1
-    return c.cpu().numpy()
-
-
-def split_lz77_device(litlens: torch.Tensor, dists: torch.Tensor,
-                      ncap: int, maxblocks: int, nsym: int,
-                      return_ck: bool = False):
-    """Split points for one LZ77 store, costs on the stream's device.
-
-    litlens/dists: (ncap,) integer tensors, real entries in [0, nsym).
-    Returns (splitpoints, npts): a host list of `maxblocks` ascending
-    SYMBOL indices, padded with ncap + 1 past the npts real ones.  With
-    return_ck, additionally returns the checkpointed cumulative
-    histograms and byte prefix (ll_ck (ncap/CKPT+1, 288), d_ck (...,
-    32), bcum (ncap+1,)) so the caller can derive per-block histograms
-    and bounds without re-paying the stream scatter-adds (ops.seed
-    does).
-    """
-    nsym = int(nsym)
-    ll_sym, d_sym, nbytes = stream_symbols(litlens, dists, ncap, nsym)
-    ll_ck, d_ck, bcum = checkpoints(ll_sym, d_sym, nbytes, ncap, nsym)
-    STATS["searches"] += 1
-    tabs = (ll_ck, d_ck, ll_sym, d_sym, bcum)
-
-    def costs(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-        return probe_round(tabs, a, b, ncap, nsym <= 1000)
-
-    def split_pairs(lstart, pts, lend):
-        """(a, b) of the two halves at each point, then [lstart, lend)."""
-        n = len(pts)
-        a = np.concatenate([np.full(n, lstart), pts, [lstart]])
-        b = np.concatenate([pts, np.full(n, lend), [lend]])
-        return a, b
-
-    def find_minimum(lstart: int, lend: int):
-        """(pos, smallest, cost of [lstart, lend)) per FindMinimum."""
-        start0, end0 = lstart + 1, lend
-        if end0 - start0 < LINEAR_MAX:
-            pts = np.arange(start0, end0)
-            c = costs(*split_pairs(lstart, pts, lend))
-            n = len(pts)
-            v = c[:n] + c[n:2 * n]
-            k = int(np.argmin(v))
-            return int(pts[k]), int(v[k]), int(c[2 * n])
-        start, end, pos, lastbest = start0, end0, start0, BIG
-        origcost = None
-        while True:
-            step = (end - start) // (NUM + 1)
-            p = start + (np.arange(NUM) + 1) * step
-            a, b = split_pairs(lstart, p, lend)
-            if origcost is not None:
-                a, b = a[:-1], b[:-1]
-            c = costs(a, b)
-            if origcost is None:
-                origcost = int(c[2 * NUM])
-            vp = c[:NUM] + c[NUM:2 * NUM]
-            besti = int(np.argmin(vp))
-            best = int(vp[besti])
-            if best > lastbest:
-                break
-            nstart = start if besti == 0 else int(p[besti - 1])
-            nend = end if besti == NUM - 1 else int(p[besti + 1])
-            start, end, pos, lastbest = nstart, nend, int(p[besti]), best
-            if nend - nstart <= NUM:
-                break
-        return pos, lastbest, origcost
-
-    # --- outer accept/mark-done loop (blocksplitter.c:233-266) ---
-    MB = maxblocks
-    sp = [ncap + 1] * MB           # sorted, sentinel-padded
-    done: set[int] = set()         # done segment starts
-    npts, numblocks = 0, 1
-    finished = nsym < 10
-    it = 0
-    while it < 2 * MB and not finished:
-        # Largest splittable segment over current splitpoints.  The
-        # reference's FIRST evaluation runs on [0, size) before any
-        # FindLargestSplittableBlock call; later segment ends use the
-        # size-1 quirk (blocksplitter.c:235-236 vs :201).
-        starts = ([0] + sp)[:MB + 1]
-        ends = (sp + [0])[:MB + 1]
-        ends[npts] = nsym - 1
-        lengths = [ends[s] - starts[s]
-                   if s <= npts and starts[s] not in done else -1
-                   for s in range(MB + 1)]
-        seg = int(np.argmax(lengths))
-        first = it == 0
-        lstart = 0 if first else starts[seg]
-        lend = nsym if first else ends[seg]
-        found = first or lengths[seg] > 0
-        finished = (not found) or numblocks >= MB or lend - lstart < 10
-        if not finished:
-            llpos, splitcost, origcost = find_minimum(lstart, lend)
-            if (splitcost > origcost or llpos == lstart + 1
-                    or llpos == lend):
-                done.add(lstart)
-            else:
-                sp[npts] = llpos
-                sp.sort()
-                npts += 1
-                numblocks += 1
-        it += 1
-    if return_ck:
-        return sp, npts, ll_ck, d_ck, bcum
-    return sp, npts
 
 
 # ---------------------------------------------------------------------------
-# The same search under device control: a chain of split steps.
+# The search: one split_search kernel a search.
 # ---------------------------------------------------------------------------
 #
-# The state of split_lz77_device's loop lives in one int64 tensor (the
-# layout csrc/split_ctl.cu reads).  One split step consumes the costs of
-# the round the previous step issued, advances the state exactly as the
-# host loop does, and writes the next round's ranges and their count
-# (S_COUNT; 0 once the search has finished).  The host queues N_MAX
-# (step, autotype_cost) pairs without a sync; a step after the search
-# finished, and the cost launch after it, do nothing.
+# The state of the reference's loop lives in one int64 tensor (the layout
+# csrc/split_search.cu reads).  One step consumes the costs of the round
+# the previous step issued, advances the state, and writes the next
+# round's ranges and their count (S_COUNT; 0 once the search has
+# finished); the round's costs follow.  On the card the whole search is
+# one launch of the split_search kernel, on the CPU split_step_plain and
+# autotype_costs_plain in turn (split_search_plain).
 
 (S_IT, S_NPTS, S_NDONE, S_NUMBLOCKS, S_FINISHED, S_MODE, S_LSTART, S_LEND,
  S_ORIG, S_START, S_END, S_POS, S_LASTBEST, S_NLIN, S_COUNT, S_OVERFLOW,
@@ -386,6 +267,7 @@ def split_lz77_device(litlens: torch.Tensor, dists: torch.Tensor,
 S_HEAD = 20                    # sp at [S_HEAD, +MB), done at [+MB, +2MB+1)
 M_SELECT, M_LINEAR, M_PROBE = 0, 1, 2
 MAX_RANGES = 2 * (LINEAR_MAX - 1) + 1   # a linear round: 1023 points
+SYNC_WORDS = 64                # the kernel's uint32 scratch (split_search.cu)
 
 
 @functools.lru_cache(maxsize=None)
@@ -414,7 +296,7 @@ def probe_rounds_max(span: int) -> int:
 
 
 def n_max(maxblocks: int, ncap: int) -> int:
-    """Split steps of one chain: the outer loop evaluates at most
+    """Steps that finish any search: the outer loop evaluates at most
     2*maxblocks segments, each one linear round or at most
     probe_rounds_max(ncap) probe rounds; one more step consumes the last
     round's costs."""
@@ -449,11 +331,12 @@ def _round_ranges(kind: str, lstart: int, lend: int, start: int, end: int):
 
 def split_step_plain(state, nsym, costs, starts, ends, small_rows,
                      maxblocks: int, ncap: int, last: bool) -> None:
-    """Plain version of the split_step kernel: one step of the search on
-    CPU tensors, in place.  costs (MAX_RANGES,) int64 holds the costs of
-    the round the previous step issued; starts/ends (MAX_RANGES,) int64
-    and small_rows (MAX_RANGES,) bool receive the next round's ranges and
-    fixed-cost gates, state[S_COUNT] their count."""
+    """One step of the search on CPU tensors, in place (the split_search
+    kernel's step).  costs (MAX_RANGES,) int64 holds the costs of the
+    round the previous step issued; starts/ends (MAX_RANGES,) int64 and
+    small_rows (MAX_RANGES,) bool receive the next round's ranges and
+    fixed-cost gates, state[S_COUNT] their count.  `last` sets S_OVERFLOW
+    if the search has not finished."""
     MB = maxblocks
     s = [int(x) for x in state.tolist()]
     nsym = int(nsym)
@@ -553,122 +436,155 @@ def split_step_plain(state, nsym, costs, starts, ends, small_rows,
     state.copy_(torch.tensor(s, dtype=torch.int64))
 
 
-def split_step(state, nsym, costs, starts, ends, small_rows, maxblocks: int,
-               ncap: int, last: bool) -> None:
-    """One split step: the split_step kernel (csrc/split_ctl.cu) on CUDA
-    tensors, the plain version on CPU tensors.  nsym is a 0-d int64
-    tensor on the state's device."""
-    if scan_kernel.device_kind(state) == "cpu":
-        split_step_plain(state, nsym, costs, starts, ends, small_rows,
-                         maxblocks, ncap, last)
-        return
-    dev = state.device
-    scan_kernel.check(state, torch.int64, (S_HEAD + 2 * maxblocks + 1,),
-                      "state")
-    scan_kernel.check(nsym, torch.int64, (), "nsym")
-    for t, what in ((costs, "costs"), (starts, "starts"), (ends, "ends")):
-        scan_kernel.check(t, torch.int64, (MAX_RANGES,), what)
-    scan_kernel.check(small_rows, torch.bool, (MAX_RANGES,), "small_rows")
-    for t in (nsym, costs, starts, ends, small_rows):
-        if t.device != dev:
-            raise ValueError("split_step: inputs on different devices")
-    lib = scan_kernel.build_kernels()["split_ctl"]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        scan_kernel.raise_on(lib.zt_split_step(
-            state.data_ptr(), nsym.data_ptr(), costs.data_ptr(),
-            starts.data_ptr(), ends.data_ptr(), small_rows.data_ptr(),
-            maxblocks, int(bool(last)), stream), "split_step")
-    scan_kernel.LAUNCHES["split_step"] += 1
+def _scratch(maxblocks: int, ncap: int, dev, alloc):
+    """(state, costs, starts, ends, small_rows) of a fresh search."""
+    costs, starts, ends = alloc((3, MAX_RANGES), dtype=torch.int64,
+                                device=dev)
+    return (split_state(maxblocks, ncap, dev), costs, starts, ends,
+            alloc(MAX_RANGES, dtype=torch.bool, device=dev))
 
 
-def autotype_costs_counted(tabs, starts, ends, small_rows, state, costs,
-                           ncap: int) -> None:
-    """Costs of the round a split step issued, into `costs`: ranges
-    [0, state[S_COUNT]) of starts/ends.  On CUDA tensors one launch of the
-    autotype_cost kernel's device-count entry (grid sized for
-    MAX_RANGES, the count read on the device); on CPU tensors the plain
-    version on the first count ranges."""
-    ll_ck, d_ck, ll_sym, d_sym, bcum = tabs
-    if scan_kernel.device_kind(state) == "cpu":
-        n = int(state[S_COUNT])
-        if n:
-            costs[:n] = autotype_costs_plain(
-                ll_ck, d_ck, ll_sym, d_sym, bcum, starts[:n], ends[:n],
-                ncap, small_rows[:n])
-        return
-    dev = state.device
-    _check_ranges(tabs, ncap, ((starts, "starts"), (ends, "ends"),
-                               (costs, "costs")),
-                  MAX_RANGES, "autotype_costs_counted")
-    scan_kernel.check(small_rows, torch.bool, (MAX_RANGES,), "small_rows")
-    if (state.dtype != torch.int64 or not state.is_contiguous()
-            or state.numel() <= S_COUNT):
-        raise ValueError("autotype_costs_counted: state must be a "
-                         "contiguous int64 split state")
-    if small_rows.device != dev or ll_ck.device != dev:
-        raise ValueError("autotype_costs_counted: inputs on different "
-                         "devices")
-    lib = scan_kernel.build_kernels()["hist_cost"]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        scan_kernel.raise_on(lib.zt_autotype_cost_dev(
-            ll_ck.data_ptr(), d_ck.data_ptr(), ll_sym.data_ptr(),
-            d_sym.data_ptr(), bcum.data_ptr(), starts.data_ptr(),
-            ends.data_ptr(), small_rows.data_ptr(),
-            state.data_ptr() + 8 * S_COUNT, costs.data_ptr(), MAX_RANGES,
-            ncap, stream), "autotype_cost")
-    scan_kernel.LAUNCHES["autotype_cost"] += 1
-
-
-def split_chain(tabs, nsym, ncap: int, maxblocks: int,
-                steps: int | None = None) -> torch.Tensor:
-    """The whole search as a chain of `steps` (default n_max) split
-    steps and cost rounds, queued without a host sync; returns the final
-    state.  On the CPU the chain stops at the step that finishes the
-    search (the rest would do nothing) and an unfinished chain raises; on
-    the card the caller reads state[S_OVERFLOW] with its results."""
-    dev = tabs[0].device
+def split_search_plain(tabs, nsym, ncap: int, maxblocks: int,
+                       steps: int | None = None) -> tuple:
+    """Plain version of the split_search kernel on CPU tensors: at most
+    `steps` (default n_max) steps, each followed by the costs of the
+    round it issued (autotype_costs_plain), stopping at the step that
+    finishes the search.  Returns (state, costs, starts, ends,
+    small_rows): the final state and the last round issued."""
     if steps is None:
         steps = n_max(maxblocks, ncap)
-    state = split_state(maxblocks, ncap, dev)
-    costs = torch.zeros(MAX_RANGES, dtype=torch.int64, device=dev)
-    starts = torch.zeros(MAX_RANGES, dtype=torch.int64, device=dev)
-    ends = torch.zeros(MAX_RANGES, dtype=torch.int64, device=dev)
-    small_rows = torch.zeros(MAX_RANGES, dtype=torch.bool, device=dev)
-    on_cpu = dev.type == "cpu"
-    STATS["searches"] += 1
+    nsym = int(nsym)
+    out = _scratch(maxblocks, ncap, "cpu", torch.zeros)
+    state, costs, starts, ends, small_rows = out
     for k in range(steps):
-        split_step(state, nsym, costs, starts, ends, small_rows, maxblocks,
-                   ncap, k == steps - 1)
-        autotype_costs_counted(tabs, starts, ends, small_rows, state, costs,
-                               ncap)
-        if on_cpu and state[S_FINISHED]:
+        split_step_plain(state, nsym, costs, starts, ends, small_rows,
+                         maxblocks, ncap, k == steps - 1)
+        n = int(state[S_COUNT])
+        if n == 0:
             break
-    if on_cpu and state[S_OVERFLOW]:
-        raise RuntimeError("split chain: the search did not finish in "
-                           f"{steps} steps")
-    return state
+        costs[:n] = autotype_costs_plain(*tabs, starts[:n], ends[:n], ncap,
+                                         small_rows[:n])
+    return out
+
+
+def split_search(tabs, nsym, ncap: int, maxblocks: int,
+                 steps: int | None = None, return_round: bool = False):
+    """The whole block-split search on one stream, queued without a host
+    read; returns its final state (with return_round also the last
+    round's costs, starts, ends and small_rows).
+
+    tabs = (ll_ck, d_ck, ll_sym, d_sym, bcum) as stream_symbols and
+    checkpoints build them; nsym a 0-d int64 tensor on their device.  At
+    most `steps` (default n_max) steps run; a search cut short has
+    state[S_OVERFLOW] set, for the caller's pull to read.  CUDA tensors
+    launch the split_search kernel (csrc/split_search.cu) once; CPU
+    tensors take split_search_plain.
+    """
+    if steps is None:
+        steps = n_max(maxblocks, ncap)
+    if steps < 1:
+        raise ValueError(f"split_search: steps={steps}")
+    STATS["searches"] += 1
+    if scan_kernel.device_kind(tabs[0]) == "cpu":
+        out = split_search_plain(tabs, nsym, ncap, maxblocks, steps)
+        return out if return_round else out[0]
+    dev = tabs[0].device
+    _check_ranges(tabs, ncap, (), 0, "split_search")
+    scan_kernel.check(nsym, torch.int64, (), "nsym")
+    if nsym.device != dev:
+        raise ValueError("split_search: inputs on different devices")
+    out = _scratch(maxblocks, ncap, dev, torch.empty)
+    state, costs, starts, ends, small_rows = out
+    sync = torch.empty(SYNC_WORDS, dtype=torch.int32, device=dev)
+    lib = scan_kernel.build_kernels()["split_search"]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scan_kernel.raise_on(lib.zt_split_search(
+            *(t.data_ptr() for t in tabs), state.data_ptr(),
+            nsym.data_ptr(), costs.data_ptr(), starts.data_ptr(),
+            ends.data_ptr(), small_rows.data_ptr(), sync.data_ptr(), ncap,
+            maxblocks, steps, stream), "split_search")
+    scan_kernel.LAUNCHES["split_search"] += 1
+    return out if return_round else state
+
+
+def search_clusters(dev) -> int:
+    """The two-block clusters of the split_search kernel's cooperative
+    grid on `dev` (sized at its first launch there; 0 before)."""
+    import ctypes
+
+    lib = scan_kernel.build_kernels()["split_search"]
+    clusters = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        scan_kernel.raise_on(lib.zt_split_search_clusters(
+            ctypes.byref(clusters)), "split_search")
+    return clusters.value
+
+
+def _tables(litlens, dists, ncap: int, nsym):
+    """(ll_ck, d_ck, ll_sym, d_sym, bcum) of a padded stream."""
+    ll_sym, d_sym, nbytes = stream_symbols(litlens, dists, ncap, nsym)
+    ll_ck, d_ck, bcum = checkpoints(ll_sym, d_sym, nbytes, ncap, nsym)
+    return ll_ck, d_ck, ll_sym, d_sym, bcum
+
+
+def pull_split(state, maxblocks: int) -> tuple[list[int], int]:
+    """The one host read of a search: (sp, npts) from its final state;
+    counts its rounds, raises if it was cut short."""
+    host = state.cpu().tolist()
+    STATS["syncs"] += 1
+    STATS["rounds"] += host[S_ROUNDS]
+    if host[S_OVERFLOW]:
+        raise RuntimeError("split search: the search did not finish in "
+                           "its steps")
+    return host[S_HEAD:S_HEAD + maxblocks], host[S_NPTS]
+
+
+def split_lz77_device(litlens: torch.Tensor, dists: torch.Tensor,
+                      ncap: int, maxblocks: int, nsym: int,
+                      return_ck: bool = False):
+    """Split points for one LZ77 store: the search on the stream's device
+    (split_search), then one pull.
+
+    litlens/dists: (ncap,) integer tensors, real entries in [0, nsym).
+    Returns (splitpoints, npts): a host list of `maxblocks` ascending
+    SYMBOL indices, padded with ncap + 1 past the npts real ones.  With
+    return_ck, additionally returns the checkpointed cumulative
+    histograms and byte prefix (ll_ck (ncap/CKPT+1, 288), d_ck (...,
+    32), bcum (ncap+1,)) so the caller can derive per-block histograms
+    and bounds without re-paying the stream scatter-adds (ops.seed
+    does).  A store of fewer than 10 symbols is not searched.
+    """
+    nsym = int(nsym)
+    tabs = _tables(litlens, dists, ncap, nsym)
+    if nsym < 10:
+        sp, npts = [ncap + 1] * maxblocks, 0
+    else:
+        nsym_t = torch.full((), nsym, dtype=torch.int64,
+                            device=litlens.device)
+        sp, npts = pull_split(split_search(tabs, nsym_t, ncap, maxblocks),
+                              maxblocks)
+    if return_ck:
+        return sp, npts, tabs[0], tabs[1], tabs[4]
+    return sp, npts
 
 
 def split_lz77_resident(litlens: torch.Tensor, dists: torch.Tensor,
                         ncap: int, maxblocks: int, nsym: torch.Tensor,
                         return_ck: bool = False, return_state: bool = False):
-    """split_lz77_device with the search's control on the stream's device.
+    """split_lz77_device without a host read (the megafused program's).
 
-    nsym is a 0-d int64 tensor on that device.  Returns (sp, npts) as
-    device tensors: sp (maxblocks,) ascending SYMBOL indices padded with
-    ncap + 1, npts 0-d; with return_ck also (ll_ck, d_ck, bcum) as
-    split_lz77_device returns them; with return_state also the chain's
-    final state (S_OVERFLOW, S_ROUNDS).  Nothing here reads the device.
+    nsym is a 0-d int64 tensor on the stream's device.  Returns (sp,
+    npts) as device tensors: sp (maxblocks,) ascending SYMBOL indices
+    padded with ncap + 1, npts 0-d; with return_ck also (ll_ck, d_ck,
+    bcum) as split_lz77_device returns them; with return_state also the
+    search's final state (S_OVERFLOW, S_ROUNDS).
     """
-    ll_sym, d_sym, nbytes = stream_symbols(litlens, dists, ncap, nsym)
-    ll_ck, d_ck, bcum = checkpoints(ll_sym, d_sym, nbytes, ncap, nsym)
-    state = split_chain((ll_ck, d_ck, ll_sym, d_sym, bcum), nsym, ncap,
-                        maxblocks)
+    tabs = _tables(litlens, dists, ncap, nsym)
+    state = split_search(tabs, nsym, ncap, maxblocks)
     out = (state[S_HEAD:S_HEAD + maxblocks], state[S_NPTS])
     if return_ck:
-        out = out + (ll_ck, d_ck, bcum)
+        out = out + (tabs[0], tabs[1], tabs[4])
     if return_state:
         out = out + (state,)
     return out
@@ -678,10 +594,11 @@ def block_split_lz77_device_dispatch(litlens: np.ndarray,
                                      dists: np.ndarray,
                                      maxblocks: int = 15,
                                      floor: int = CKPT, device="cuda"):
-    """First half of block_split_lz77_device: upload the padded stream.
+    """First half of block_split_lz77_device: upload the padded stream
+    and queue its search (no host read).
 
-    Returns an opaque handle for ..._collect() (None for tiny stores).
-    The search itself runs in _collect (its control is on the host).
+    Returns an opaque handle for ..._collect() (None for stores of fewer
+    than 10 symbols, which are not searched).
     """
     n = len(litlens)
     if n < 10:
@@ -694,16 +611,18 @@ def block_split_lz77_device_dispatch(litlens: np.ndarray,
     ll[:n] = litlens
     dd[:n] = dists
     dev = torch.device(device)
-    return (upload(ll, dev), upload(dd, dev), ncap, maxblocks, n)
+    nsym_t = torch.full((), n, dtype=torch.int64, device=dev)
+    tabs = _tables(upload(ll, dev), upload(dd, dev), ncap, nsym_t)
+    return split_search(tabs, nsym_t, ncap, maxblocks), maxblocks
 
 
 def block_split_lz77_device_collect(handle) -> list[int]:
-    """Second half of block_split_lz77_device_dispatch: run the search."""
+    """Second half of block_split_lz77_device_dispatch: the search's one
+    pull."""
     if handle is None:
         return []
-    ll, dd, ncap, maxblocks, n = handle
-    sp, npts = split_lz77_device(ll, dd, ncap, maxblocks, n)
-    return [int(x) for x in sp[:npts]]
+    sp, npts = pull_split(*handle)
+    return sp[:npts]
 
 
 def block_split_lz77_device(litlens: np.ndarray, dists: np.ndarray,

@@ -2,14 +2,14 @@
 
 Port of zopfli_tpu/ops/mega.py.  The two-phase device path (ops.seed ->
 host read of the split points -> fused_engine.FusedSqueeze) reads the
-device once per split round and once for the seed's block bounds before
-the squeeze can be queued.  Here one master's whole pipeline queues on
+device once for the seed's split and block bounds before the squeeze can
+be queued.  Here one master's whole pipeline queues on
 the device without a host read:
 
   1. the seed core (ops.seed.SeedCore.parse and finish_resident):
      candidates, fixed-cost seed parse, the reference split search under
-     device control (ops.devsplit.split_lz77_resident: a chain of
-     split_step kernels and autotype_cost rounds), per-block seed stats
+     device control (ops.devsplit.split_lz77_resident: one launch of the
+     split_search kernel), per-block seed stats
   2. the tile -> block geometry computed on the device from the split
      points, with the replica-lane fill (_geometry): bit-compatible with
      FusedSqueeze's host geometry
@@ -318,7 +318,7 @@ def _finish(state, lit_t, geo, npts, G: int, NL: int, nb_pad: int, MB: int,
     lit_stream = torch.where(pl_s >= spec.MIN_MATCH, pl_s, hi_s)
     dist_stream = torch.where(pl_s >= spec.MIN_MATCH, hi_s, 0)
 
-    sp2, npts2, ll_ck, d_ck, bcum, chain2 = devsplit.split_lz77_resident(
+    sp2, npts2, ll_ck, d_ck, bcum, search2 = devsplit.split_lz77_resident(
         lit_stream, dist_stream, DCAP, MB, nsym_total, return_ck=True,
         return_state=True)
     ll_sym, d_sym, _nb = devsplit.stream_symbols(lit_stream, dist_stream,
@@ -344,7 +344,7 @@ def _finish(state, lit_t, geo, npts, G: int, NL: int, nb_pad: int, MB: int,
         ll_ck, d_ck, ll_sym, d_sym, bcum, starts2, ends2, DCAP,
         (nsym_total <= 1000).expand(MB + 1).contiguous())
     tc2 = torch.where(live2, c2, 0).sum()
-    return nsym_lane, packed, sp2, npts2, tc1, tc2, chain2
+    return nsym_lane, packed, sp2, npts2, tc1, tc2, search2
 
 
 # The outputs MegaResult pulls at once, flattened into one int64 tensor:
@@ -358,7 +358,8 @@ def _pull_layout(MB: int, NL: int, nb_pad: int):
             ("tile_start", (NL,)), ("tile_nbytes", (NL,)),
             ("tile_block", (NL,)), ("nb_total", ()),
             ("replica_of", (nb_pad,)), ("sp2", (MB,)), ("npts2", ()),
-            ("tc1", ()), ("tc2", ()), ("chain1", (2,)), ("chain2", (2,)))
+            ("tc1", ()), ("tc2", ()), ("search1", (2,)),
+            ("search2", (2,)))
 
 
 def mega_dispatch(data: np.ndarray, instart: int, inend: int,
@@ -367,8 +368,7 @@ def mega_dispatch(data: np.ndarray, instart: int, inend: int,
     """Queue the megafused program for one master; returns a handle.
 
     Nothing here reads the device: the seed parse, both split searches
-    (chains of split_step kernels and autotype_cost rounds of fixed
-    length), the geometry, the loop and the compaction all queue on
+    (one split_search launch each), the geometry, the loop and the compaction all queue on
     `device`.  On a CUDA device a kernel that fails to build or launch
     raises; there is no host-controlled fallback.
     """
@@ -388,7 +388,7 @@ def mega_dispatch(data: np.ndarray, instart: int, inend: int,
     core = seed_mod.make_seed_core(cap, MB, tuple(sorted(knobs.items())))
     bufd = devsplit.upload(buf, dev)
     (_sp, npts, byte_splits, ll_h1, d_hist, block_costs, _nsym_seed, bp_len,
-     bp_dist, chain1) = core.finish_resident(
+     bp_dist, search1) = core.finish_resident(
         core.parse(bufd, min_pos, inend_real))
     seed_mod.PROGRAMS[0] += 1
 
@@ -411,13 +411,13 @@ def mega_dispatch(data: np.ndarray, instart: int, inend: int,
                        for i, m in enumerate(_maps()))
     state = loop.run(loop.init_state(sll, sd), numiterations, ll_maps,
                      d_maps, rep_off)
-    nsym_lane, packed, sp2, npts2, tc1, tc2, chain2 = _finish(
+    nsym_lane, packed, sp2, npts2, tc1, tc2, search2 = _finish(
         state, lit_t, geo, npts, G, NL, nb_pad, MB, fetch_cap, core.DCAP)
-    chains = [c[devsplit.S_OVERFLOW:devsplit.S_ROUNDS + 1]
-              for c in (chain1, chain2)]
+    searches = [s[devsplit.S_OVERFLOW:devsplit.S_ROUNDS + 1]
+                for s in (search1, search2)]
     pulled = (byte_splits, npts, block_costs, ll_h1, d_hist, state[2],
               state[3], state[4], nsym_lane, tile_start, tile_nbytes,
-              tile_block, geo[4], geo[5], sp2, npts2, tc1, tc2, *chains)
+              tile_block, geo[4], geo[5], sp2, npts2, tc1, tc2, *searches)
     flat = torch.cat([t.reshape(-1).long() for t in pulled])
     layout = _pull_layout(MB, NL, nb_pad)
     return (data, instart, inend, window_start, fetch_cap, layout, flat,
@@ -445,12 +445,13 @@ class MegaResult:
             n = int(np.prod(shape, dtype=np.int64))
             out[name] = host[at:at + n].reshape(shape)
             at += n
-        for which in ("chain1", "chain2"):
+        for which in ("search1", "search2"):
             if out[which][0]:
-                raise RuntimeError(f"mega: the split chain ({which}) did not "
-                                   "finish in its N_MAX steps")
-        self.chain_rounds = (int(out["chain1"][1]), int(out["chain2"][1]))
-        devsplit.STATS["chain_rounds"] += sum(self.chain_rounds)
+                raise RuntimeError(f"mega: the split search ({which}) did "
+                                   "not finish in its N_MAX steps")
+        self.search_rounds = (int(out["search1"][1]),
+                              int(out["search2"][1]))
+        devsplit.STATS["rounds"] += sum(self.search_rounds)
         # Device-computed second-split attempt (deflate.c:872-893):
         # symbol indices into the concatenated chosen parse, plus the
         # exact auto-type cost totals of both bound sets.

@@ -46,11 +46,11 @@ MAX_KBP = 16     # breakpoints per position the CUDA scan supports
 
 # Kernel launches, counted by the wrappers where they launch a kernel
 # (hist_cost's wrapper is costmodel.hist_dynamic_cost, autotype_cost's
-# devsplit.autotype_costs and devsplit.autotype_costs_counted; both
-# kernels are in csrc/hist_cost.cu; split_step's is devsplit.split_step).
+# devsplit.autotype_costs, both kernels in csrc/hist_cost.cu;
+# split_search's is devsplit.split_search).
 LAUNCHES = {"scan": 0, "traceback": 0, "traceback_large": 0,
             "hist_cost": 0, "autotype_cost": 0, "dp_scan": 0,
-            "split_step": 0}
+            "split_search": 0}
 
 # What each kernel replaces, for reports.
 REPLACES = {
@@ -63,8 +63,8 @@ REPLACES = {
                      "zopfli_tpu/ops/devsplit.py:104",
     "dp_scan": "no TPU counterpart: XLA lax.scan at "
                "zopfli_tpu/ops/dp.py:68",
-    "split_step": "no TPU counterpart: XLA lax.while_loop/lax.cond at "
-                  "zopfli_tpu/ops/devsplit.py:229-335",
+    "split_search": "no TPU counterpart: XLA lax.while_loop/lax.cond at "
+                    "zopfli_tpu/ops/devsplit.py:134-336",
 }
 
 
@@ -250,7 +250,7 @@ _CSRC = os.path.join(_PKG, "csrc")
 _BUILD = os.path.join(_PKG, "_build")
 SOURCES = {"scan": "csrc/scan.cu", "traceback": "csrc/traceback.cu",
            "hist_cost": "csrc/hist_cost.cu", "dp_scan": "csrc/dp_scan.cu",
-           "split_ctl": "csrc/split_ctl.cu"}
+           "split_search": "csrc/split_search.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
               "-Xcompiler", "-fPIC"]
@@ -283,11 +283,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.zt_hist_cost_smem_bytes.argtypes = []
         lib.zt_autotype_cost.restype = ci
         lib.zt_autotype_cost.argtypes = [vp] * 9 + [ci, i64, ci, vp]
-        lib.zt_autotype_cost_dev.restype = ci
-        lib.zt_autotype_cost_dev.argtypes = [vp] * 10 + [ci, i64, vp]
-    elif name == "split_ctl":
-        lib.zt_split_step.restype = ci
-        lib.zt_split_step.argtypes = [vp] * 6 + [ci, ci, vp]
+    elif name == "split_search":
+        lib.zt_split_search.restype = ci
+        lib.zt_split_search.argtypes = [vp] * 12 + [i64, ci, i64, vp]
+        lib.zt_split_search_clusters.restype = ci
+        lib.zt_split_search_clusters.argtypes = [ctypes.POINTER(ci)]
     elif name == "dp_scan":
         lib.zt_dp_scan.restype = ci
         lib.zt_dp_scan.argtypes = [vp] * 9 + [ci] * 3 + [vp]
@@ -300,6 +300,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.zt_traceback_lanes_per_block.argtypes = [ci]
         lib.zt_traceback_smem_bytes.restype = sz
         lib.zt_traceback_smem_bytes.argtypes = [ci]
+
+
+def _newest_source(src: str) -> float:
+    """mtime of a source or of the newest header beside it (the sources
+    include csrc/*.cuh)."""
+    heads = [os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+             if f.endswith(".cuh")]
+    return max(os.path.getmtime(f) for f in [src] + heads)
 
 
 def build_kernels() -> dict[str, ctypes.CDLL]:
@@ -319,7 +327,7 @@ def build_kernels() -> dict[str, ctypes.CDLL]:
             src = os.path.join(_PKG, SOURCES[name])
             so = os.path.join(_BUILD, f"libzt_{name}.so")
             if (os.path.exists(so)
-                    and os.path.getmtime(so) >= os.path.getmtime(src)):
+                    and os.path.getmtime(so) >= _newest_source(src)):
                 continue
             tmp = f"{so}.{os.getpid()}.tmp"
             procs[name] = (subprocess.Popen(

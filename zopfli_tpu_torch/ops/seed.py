@@ -11,7 +11,7 @@ squeeze.c:528-560) over a whole master, the reference block-split search
      over master-aligned TILE lanes
   3. per-lane path compaction -> one global LZ77 symbol stream
   4. devsplit.split_lz77_device on the stream (exact
-     ZopfliBlockSplitLZ77 semantics)
+     ZopfliBlockSplitLZ77 semantics: one split_search launch)
   5. per-block (ll, d) histograms of the seed parse (iteration-0 stats,
      squeeze.c:481-482 semantics with the end-symbol=1 convention)
   6. per-block exact auto-type costs of the seed parse (stored / fixed /
@@ -21,11 +21,12 @@ squeeze.c:528-560) over a whole master, the reference block-split search
      engine's compact parse pull)
 
 Steps 1-3 are SeedCore.parse and queue on the device without a host
-sync (seed_dispatch); steps 4-7 are SeedCore.finish (seed_finish), whose
-split search syncs once per probe round.  So a caller queues every
-master's parse before the first sync.  SeedCore.finish_resident is steps
-4-7 without a host read (the megafused program's, ops.mega).  The
-candidate tables stay on the device and are reused by the fused squeeze.
+sync (seed_dispatch); steps 4-7 are SeedCore.finish (seed_finish), which
+reads the symbol count, runs the split search on the device and reads
+its result once.  So a caller queues every master's parse before the
+first sync.  SeedCore.finish_resident is steps 4-7 without a host read
+(the megafused program's, ops.mega).  The candidate tables stay on the
+device and are reused by the fused squeeze.
 """
 
 from __future__ import annotations
@@ -235,7 +236,7 @@ class SeedCore:
         the split under device control (devsplit.split_lz77_resident),
         then the same block bounds, stats and costs built from sp, npts
         and nsym as device tensors.  Bit-equal to finish on the same
-        parse, with npts a 0-d tensor; also returns the split chain's
+        parse, with npts a 0-d tensor; also returns the split search's
         final state (its overflow flag and rounds)."""
         lit_stream, dist_stream, nsym_flat, nsym_t, bp_len, bp_dist = parsed
         sp, npts, ll_ck, d_ck, bcum, state = devsplit.split_lz77_resident(
