@@ -7,6 +7,7 @@
     python3 chip_smoke.py --only parallel  # build + phase 9 only
     python3 chip_smoke.py --only mega      # build + phase mega only
     python3 chip_smoke.py --only split     # build + the split search only
+    python3 chip_smoke.py --only workers   # build + phase 10 only
 
 Phases, each printed as one JSON line:
   1. environment: the card's name and power limit, the kernels' build.
@@ -107,12 +108,26 @@ Phases, each printed as one JSON line:
      compress_multihost in a world-size-1 gloo group (bytes equal to
      compress), and two processes on this card in a gloo group (2.1 MB,
      --i2; rank 0's bytes equal to the single-process ones).
+  10. workers: masters on host threads (Options.workers) over 4 MiB of
+     repo text, four 2^20-byte masters: forced btype 1 through
+     DeviceBlockEngine (one dp_scan launch a master) at workers=1, then
+     at workers=4 with deflate.local_devices patched to [cuda:0, cuda:0]
+     (the round-robin of masters over local devices): bytes equal, zlib
+     round trip, 4 dp_scan launches each, no fallback, master i's engine
+     on devices[i % 2]; dp_scan held bit-equal to its plain version (on
+     the host) on one master's row and timed there; btype 0 at workers=4
+     spliced equal to workers=1; the default path (btype 2) at workers=4
+     still on the fused loop, launches and bytes equal to workers=1's.
+     Each run's seconds are printed beside the card's name and power
+     limit.
 Then a `kernels` JSON line (with phase 3's launches, phase mega's in
 `launches_mega`, phase 6's in `launches_png`, for K1 and K2 phase 6's
 check at its shape in `png_shape` and phase 9's at G=4 in `g4_shape`;
 split_search's cooperative grid in `grid_clusters`; dp_scan with the
-launches of phase 8's deflate, the large-tile traceback entry with those
-of its ZT_TILE=32768 run), and last {"ok": true, "device": {...}}.
+launches of phase 8's deflate, those of phase 10's threaded run in
+`launches_workers` and its time at the 2^20 bucket in `master_shape`,
+the large-tile traceback entry with those of its ZT_TILE=32768 run), and
+last {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, if any phase fails or no GPU is
 present.  Imports nothing of JAX.
 """
@@ -266,12 +281,17 @@ def cuda_time_ms(fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def phase_env(zt_scan):
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi failed: {smi.stderr.strip()}", flush=True)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi failed: {smi.stderr.strip()}")
+
+
+def phase_env(zt_scan):
+    print(card_line(), flush=True)
     t0 = time.time()
     zt_scan.build_kernels()
     secs = time.time() - t0
@@ -2390,6 +2410,159 @@ def phase_parallel(dev="cuda") -> dict:
     return report["g4"]
 
 
+def phase_workers(dev="cuda") -> dict:
+    """Masters on host threads (Options.workers) on the card.  4 MiB of
+    repo text, four 2^20-byte masters at forced btype 1 through
+    DeviceBlockEngine (one dp_scan launch a master, at the 2^20 bucket),
+    at workers=1 and then at workers=4 with deflate.local_devices
+    patched to [cuda:0, cuda:0] (the round-robin of masters over local
+    devices, one card standing in for two): bytes equal, zlib round
+    trip, 4 dp_scan launches each, no fallback, each master's engine
+    made on, and its tensors on, the device its turn named.  dp_scan is
+    held bit-equal to its plain version (on the host) on one master's
+    inputs and timed there.  Stored blocks (btype 0) at workers=4 must
+    splice equal to workers=1; the default path (btype 2) at workers=4
+    still takes the fused loop: its launches and bytes equal
+    workers=1's.  Returns dp_scan's entries for the kernels line."""
+    import importlib
+    import threading
+
+    import numpy as np
+    import torch
+
+    import zopfli_tpu_torch as zt
+    from zopfli_tpu_torch.emit import BitStream
+    from zopfli_tpu_torch.ops import dp, engine
+
+    tdeflate = importlib.import_module("zopfli_tpu_torch.deflate")
+    dev = torch.device(dev)
+    card = torch.device("cuda", torch.cuda.current_device())
+    devices = [card, card]
+    raw = corpus_bytes(4 * MIB)
+    data = np.frombuffer(raw, np.uint8)
+    checks, report = {}, {"card": card_line()}
+    made, lock = {}, threading.Lock()
+
+    def factory(d, s, e):
+        # DeviceBlockEngine(device="cuda") takes the thread's current
+        # device; kept to check where its tensors went.
+        eng = engine.DeviceBlockEngine(d, s, e, device=dev.type)
+        with lock:
+            made[s] = (torch.cuda.current_device(), eng)
+        return eng
+
+    def run(btype, workers, patched, factory=None):
+        opts = zt.Options(numiterations=ITERATIONS, device=str(dev),
+                          workers=workers)
+        local = tdeflate.local_devices
+        if patched:
+            tdeflate.local_devices = lambda options: devices
+        made.clear()
+        _reset_counters()
+        out = BitStream()
+        torch.cuda.synchronize()
+        try:
+            t0 = time.time()
+            tdeflate.deflate(opts, btype, True, data, out,
+                             engine_factory=factory)
+            torch.cuda.synchronize()
+            secs = time.time() - t0
+        finally:
+            tdeflate.local_devices = local
+        payload = out.getvalue()
+        return payload, {"seconds": secs, "bytes": len(payload),
+                         "roundtrip": zlib.decompress(payload, -15) == raw,
+                         **_counters()}
+
+    def placed(n):
+        """Master i's engine made under, and its tensors on, devices[i %
+        len(devices)]."""
+        starts = sorted(made)
+        return (starts == [i * MIB for i in range(n)] and all(
+            made[s][0] == devices[i % len(devices)].index
+            and made[s][1]._bp_len.device == devices[i % len(devices)]
+            for i, s in enumerate(starts)))
+
+    # Each worker count twice, in turns: the first run in a process pays
+    # for first use.
+    turns = (1, 4, 4, 1)
+    fixed, runs = [], []
+    for w in turns:
+        payload, r = run(1, w, w > 1, factory)
+        fixed.append(payload)
+        runs.append({"workers": w, "seconds": r["seconds"],
+                     "bytes": r["bytes"], "roundtrip": r["roundtrip"],
+                     "dp_scan": r["launches"]["dp_scan"],
+                     "engine_fallbacks": r["engine_fallbacks"],
+                     "placed": placed(4)})
+    report["btype1"] = runs
+    checks["btype1_equal"] = all(p == fixed[0] for p in fixed)
+    checks["btype1_roundtrip"] = all(r["roundtrip"] for r in runs)
+    checks["btype1_placed"] = all(r["placed"] for r in runs)
+    checks["btype1_dp_scan_launches"] = all(r["dp_scan"] == 4
+                                            for r in runs)
+    checks["btype1_no_fallback"] = all(r["engine_fallbacks"] == 0
+                                       for r in runs)
+    # One master's dp_scan inputs (the second, with its window), held
+    # against the plain version on the host and timed.
+    ins = _dp_inputs(engine, data, MIB, 2 * MIB, dev)
+    made.clear()
+    t0 = time.time()
+    checks["dp_master_row"], err = _dp_hold(dp, ins, "cpu")
+    report["dp_plain_host_seconds_master"] = time.time() - t0
+    report["dp_ms_master"] = cuda_time_ms(lambda: dp.squeeze_scan(*ins), 3)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
+    report["dp_bound_ms_master"], report["dp_bound_by_master"] = _dp_bound(
+        ins[0], nbytes(ins), nbytes(dp.squeeze_scan(*ins)))
+    del ins
+
+    stored1, r1 = run(0, 1, False)
+    stored4, r4 = run(0, 4, True)
+    report["btype0"] = [{"workers": w, "seconds": r["seconds"],
+                         "bytes": r["bytes"]} for w, r in ((1, r1), (4, r4))]
+    checks["btype0_equal"] = stored4 == stored1
+    checks["btype0_roundtrip"] = r4["roundtrip"]
+
+    def default_run(workers):
+        _reset_counters()
+        t0 = time.time()
+        out = zt.compress(raw, "gzip", zt.Options(
+            numiterations=ITERATIONS, device=str(dev), workers=workers))
+        torch.cuda.synchronize()
+        c = _counters()
+        return out, {"workers": workers, "seconds": time.time() - t0,
+                     "bytes": len(out),
+                     "roundtrip": zlib.decompress(out, 31) == raw,
+                     "launches": c["launches"], "split": c["split"],
+                     "seed_programs": c["seed_programs"]}
+
+    gzs, dflt = zip(*(default_run(w) for w in turns))
+    report["btype2"] = dflt
+    d1 = dflt[0]
+    checks["btype2_equal"] = (all(g == gzs[0] for g in gzs)
+                              and all(d["roundtrip"] for d in dflt))
+    # The fused loop at 4 workers as at 1: one seed program a master,
+    # the same launches and split searches.
+    checks["btype2_fused_launches"] = (
+        all(d["launches"] == d1["launches"] and d["split"] == d1["split"]
+            and d["seed_programs"] == 4 for d in dflt)
+        and d1["launches"]["scan"] > 0 and d1["launches"]["hist_cost"] > 0
+        and d1["launches"]["dp_scan"] == 0)
+
+    ok = all(checks.values())
+    emit({"phase": "workers", "ok": ok, "checks": checks, **report})
+    if not ok:
+        raise RuntimeError(f"workers check failed: {checks}")
+    return {"launches_workers": runs[1]["dp_scan"],
+            "master_shape": {
+                "B": 1, "L": MIB, "max_abs_err": err,
+                "ms": report["dp_ms_master"],
+                "bound_ms": report["dp_bound_ms_master"],
+                "bound_by": report["dp_bound_by_master"],
+                "plain_host_seconds":
+                    report["dp_plain_host_seconds_master"]}}
+
+
 def main(argv) -> int:
     import torch
 
@@ -2405,10 +2578,11 @@ def main(argv) -> int:
 
         phase_env(zt_scan)
         data = np.frombuffer(corpus_1mib(), dtype=np.uint8)
-        if only in ("oracle", "parallel", "mega", "split"):
+        if only in ("oracle", "parallel", "mega", "split", "workers"):
             {"oracle": phase_oracle, "parallel": phase_parallel,
-             "mega": phase_mega, "split": phase_split}[only](
-                *(() if only == "parallel" else (data,)))
+             "mega": phase_mega, "split": phase_split,
+             "workers": phase_workers}[only](
+                *(() if only in ("parallel", "workers") else (data,)))
             return 0
         kernels = phase_kernels(data)
         if only == "kernels":
@@ -2422,6 +2596,7 @@ def main(argv) -> int:
         phase_cli(data.tobytes(), gz, inputs)
         oracle = phase_oracle(data)
         g4 = phase_parallel()
+        workers = phase_workers()
         for k, entry in kernels.items():
             # The default path's count, with the mega path's beside.
             entry["launches"] = launches[k]
@@ -2445,6 +2620,9 @@ def main(argv) -> int:
                     "bound_ms": g4[f"{k}_bound_ms"],
                     "bound_by": g4[f"{k}_bound_by"]}
         kernels.update(oracle)
+        # dp_scan's launches on the threaded btype-1 path (phase
+        # workers), and its time at that path's 2^20 bucket.
+        kernels["dp_scan"].update(workers)
         emit({"kernels": list(kernels.values())})
     except Exception:
         traceback.print_exc()

@@ -15,6 +15,7 @@ stats and feeds the first split.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -43,8 +44,8 @@ class Options:
     # "native" -- C++ host engine (serial, bit-identical to reference)
     engine: str = "device"
     tracer: Optional[Tracer] = None
-    # Master blocks of the native engine compress in parallel across
-    # host threads; 0 = auto.
+    # Master blocks compress in parallel across host threads (and local
+    # CUDA devices) where the fused loop does not take them all; 0 = auto.
     workers: int = 1
     # Torch device of the "device" engine: "cuda" (default) or "cpu".
     device: str = "cuda"
@@ -476,10 +477,11 @@ def deflate(options: Options, btype: int, final: bool, data: np.ndarray,
     """Full DEFLATE stream over master blocks (deflate.c:908-931).
 
     Master blocks are mutually independent here (each sees the previous
-    bytes only as its LZ77 window halo).  With the device engine, all
-    masters' tiles share the fused loop's lane groups; with the native
-    engine and options.workers != 1 they compress on host threads and
-    their bitstreams are spliced in order.
+    bytes only as its LZ77 window halo).  With the device engine at
+    btype 2, all masters' tiles share the fused loop's lane groups;
+    otherwise, with options.workers != 1, they compress on host threads
+    (on a host with several CUDA devices, master i on local_devices()[i
+    % n]) and their bitstreams are spliced in order.
     """
     if options.engine not in ENGINES:
         raise ValueError(f"unknown engine {options.engine!r}; expected one "
@@ -519,15 +521,28 @@ def deflate(options: Options, btype: int, final: bool, data: np.ndarray,
 
     from concurrent.futures import ThreadPoolExecutor
 
-    def work(m):
-        start, end, fin = m
+    # On a host with several CUDA devices (None otherwise, and for the
+    # native engine), round-robin masters over them: master i runs with
+    # devices[i % n] as its worker thread's current device (CUDA's
+    # current device is per host thread), so its device work lands on
+    # that card; no collectives are needed.
+    devices = local_devices(options)
+
+    def work(im):
+        i, (start, end, fin) = im
         part = BitStream()
-        deflate_part(options, btype, fin, data, start, end, part,
-                     engine_factory, greedy_fn)
+        if devices is None:
+            pin = contextlib.nullcontext()
+        else:
+            import torch
+            pin = torch.cuda.device(devices[i % len(devices)])
+        with pin:
+            deflate_part(options, btype, fin, data, start, end, part,
+                         engine_factory, greedy_fn)
         return part
 
     with ThreadPoolExecutor(max_workers=workers) as ex:
-        parts = list(ex.map(work, masters))
+        parts = list(ex.map(work, enumerate(masters)))
     for part in parts:
         out.extend(part)
 

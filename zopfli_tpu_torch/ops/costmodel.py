@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import spec
+from ..utils.counters import bump
 from . import scan_kernel
 
 INF = 1 << 29
@@ -366,7 +367,7 @@ def hist_dynamic_cost(ll_counts: torch.Tensor,
         scan_kernel.raise_on(lib.zt_hist_cost(ll.data_ptr(), d.data_ptr(),
                                               out.data_ptr(), B, stream),
                              "hist_cost")
-    scan_kernel.LAUNCHES["hist_cost"] += 1
+    bump(scan_kernel.LAUNCHES, "hist_cost")
     return out
 
 

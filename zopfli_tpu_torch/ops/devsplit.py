@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import spec
+from ..utils.counters import bump
 from . import costmodel, scan_kernel
 from .fused_engine import dist_symbol
 
@@ -200,7 +201,7 @@ def autotype_costs(ll_ck, d_ck, ll_sym, d_sym, bcum, starts, ends,
             d_sym.data_ptr(), bcum.data_ptr(), starts.data_ptr(),
             ends.data_ptr(), gate_ptr, out.data_ptr(), B, ncap, small,
             stream), "autotype_cost")
-    scan_kernel.LAUNCHES["autotype_cost"] += 1
+    bump(scan_kernel.LAUNCHES, "autotype_cost")
     return out
 
 
@@ -484,7 +485,7 @@ def split_search(tabs, nsym, ncap: int, maxblocks: int,
         steps = n_max(maxblocks, ncap)
     if steps < 1:
         raise ValueError(f"split_search: steps={steps}")
-    STATS["searches"] += 1
+    bump(STATS, "searches")
     if scan_kernel.device_kind(tabs[0]) == "cpu":
         out = split_search_plain(tabs, nsym, ncap, maxblocks, steps)
         return out if return_round else out[0]
@@ -504,7 +505,7 @@ def split_search(tabs, nsym, ncap: int, maxblocks: int,
             nsym.data_ptr(), costs.data_ptr(), starts.data_ptr(),
             ends.data_ptr(), small_rows.data_ptr(), sync.data_ptr(), ncap,
             maxblocks, steps, stream), "split_search")
-    scan_kernel.LAUNCHES["split_search"] += 1
+    bump(scan_kernel.LAUNCHES, "split_search")
     return out if return_round else state
 
 
@@ -532,8 +533,8 @@ def pull_split(state, maxblocks: int) -> tuple[list[int], int]:
     """The one host read of a search: (sp, npts) from its final state;
     counts its rounds, raises if it was cut short."""
     host = state.cpu().tolist()
-    STATS["syncs"] += 1
-    STATS["rounds"] += host[S_ROUNDS]
+    bump(STATS, "syncs")
+    bump(STATS, "rounds", host[S_ROUNDS])
     if host[S_OVERFLOW]:
         raise RuntimeError("split search: the search did not finish in "
                            "its steps")

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import spec
+from ..utils.counters import bump
 from . import scan_kernel
 from .fused_engine import dist_symbol  # the reference's dist_symbol_jax
 
@@ -176,7 +177,7 @@ def squeeze_scan(bp_len, bp_dist, bp_dcost, litcost, lcost_vec, length_mask):
             length_mask.data_ptr(), choice_len.data_ptr(),
             choice_dist.data_ptr(), cost.data_ptr(), B, L, K, stream),
             "dp_scan")
-    scan_kernel.LAUNCHES["dp_scan"] += 1
+    bump(scan_kernel.LAUNCHES, "dp_scan")
     return choice_len, choice_dist, cost
 
 

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import spec
+from ..utils.counters import bump
 from . import dp, hashmatch
 from .fused_engine import _filler
 
@@ -64,6 +65,11 @@ class DeviceBlockEngine:
         self.inend = inend
         self.L = inend - instart
         self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # "cuda" is the current device of the thread that makes the
+            # engine (a master's card under deflate's round-robin); the
+            # engine stays there whatever thread runs it later.
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self._prepared = False
 
     def _prepare(self):
@@ -127,7 +133,7 @@ class DeviceBlockEngine:
         litlens, dists = dp.traceback(cl, cd, self.L, block)
         if not self._verify(litlens, dists, block):
             # Hash collision produced a bogus match: exact fallback.
-            FALLBACKS[0] += 1
+            bump(FALLBACKS)
             from .. import native
             eng = native.BlockEngine(self.data, self.instart, self.inend)
             try:

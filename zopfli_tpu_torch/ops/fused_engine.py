@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import spec
+from ..utils.counters import bump
 from ..utils.logging import span
 from . import costmodel, hashmatch, scan_kernel
 
@@ -571,7 +572,7 @@ class FusedSqueeze:
         nsym_h = nsym.cpu().numpy().reshape(-1)        # (G*LANES,)
         over = (nsym_h[:self.nt] > fetch_cap).any()
         if over:
-            FETCH_RETRIES[0] += 1
+            bump(FETCH_RETRIES)
             pe_h = np.concatenate([p.cpu().numpy()     # (G, TILE, LANES)
                                    for p in best_pe])
         else:

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import spec
+from ..utils.counters import bump
 from . import costmodel, devsplit, fused_engine, hashmatch, scan_kernel
 from . import seed as seed_mod
 
@@ -390,7 +391,7 @@ def mega_dispatch(data: np.ndarray, instart: int, inend: int,
     (_sp, npts, byte_splits, ll_h1, d_hist, block_costs, _nsym_seed, bp_len,
      bp_dist, search1) = core.finish_resident(
         core.parse(bufd, min_pos, inend_real))
-    seed_mod.PROGRAMS[0] += 1
+    bump(seed_mod.PROGRAMS)
 
     geo = _geometry(byte_splits, npts, L, MB, NL, nb_pad, replicas)
     tile_start, tile_nbytes, tile_block = geo[0], geo[1], geo[2]
@@ -451,7 +452,7 @@ class MegaResult:
                                    "not finish in its N_MAX steps")
         self.search_rounds = (int(out["search1"][1]),
                               int(out["search2"][1]))
-        devsplit.STATS["rounds"] += sum(self.search_rounds)
+        bump(devsplit.STATS, "rounds", sum(self.search_rounds))
         # Device-computed second-split attempt (deflate.c:872-893):
         # symbol indices into the concatenated chosen parse, plus the
         # exact auto-type cost totals of both bound sets.
@@ -490,7 +491,7 @@ class MegaResult:
         nsym = self._nsym
         over = (nsym[lanes_used] > self.fetch_cap).any()
         if over:
-            fused_engine.FETCH_RETRIES[0] += 1
+            bump(fused_engine.FETCH_RETRIES)
             pe = self._best_pe.cpu().numpy()     # (G, TILE, LANES)
         else:
             packed = self._packed.cpu().numpy()  # (G, cap, LANES)

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import spec
+from ..utils.counters import bump
 
 BIG = 1e30       # cost of an unreachable position / padded literal
 W = 256          # match lengths 3..258
@@ -395,7 +396,7 @@ def scan(bp_len, bp_dist, bp_dcost, litcost, lcost_vec, groups=1):
             litcost.data_ptr(), lcost_vec.data_ptr(), ce.data_ptr(),
             cost.data_ptr(), groups, rows // groups, kbp, nt, stream),
             "scan")
-    LAUNCHES["scan"] += 1
+    bump(LAUNCHES, "scan")
     return ce, cost
 
 
@@ -448,7 +449,7 @@ def traceback(ce, lit, tile_nbytes, symtab, groups=1):
             len_bin.data_ptr(), dist_bin.data_ptr(), hist.data_ptr(),
             pe.data_ptr(), groups, rows // groups, nt, DIST_TABLE, stream),
             name)
-    LAUNCHES[name] += 1
+    bump(LAUNCHES, name)
     return hist, pe
 
 

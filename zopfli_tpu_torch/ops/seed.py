@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import spec
+from ..utils.counters import bump
 from ..utils.logging import span
 from . import costmodel, devsplit, hashmatch, scan_kernel
 
@@ -220,7 +221,7 @@ class SeedCore:
         lit_stream, dist_stream, nsym_flat, nsym_t, bp_len, bp_dist = parsed
         with span("zt.seed_wait"):          # waits for the seed parse
             nsym_total = int(nsym_t)
-        devsplit.STATS["syncs"] += 1
+        bump(devsplit.STATS, "syncs")
 
         # ---- reference split search on the seed parse ----
         sp, npts, ll_ck, d_ck, bcum = devsplit.split_lz77_device(
@@ -400,7 +401,7 @@ def seed_dispatch(data: np.ndarray, instart: int, inend: int,
     core = make_seed_core(cap, maxblocks, tuple(sorted(knobs.items())))
     parsed = core.parse(devsplit.upload(buf, torch.device(device)),
                         min_pos, inend_real)
-    PROGRAMS[0] += 1
+    bump(PROGRAMS)
     return (instart, inend, core, parsed)
 
 

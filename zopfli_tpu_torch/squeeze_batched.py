@@ -15,6 +15,7 @@ import numpy as np
 from . import spec
 from .lz77 import LZ77Store
 from .squeeze import SymbolStats
+from .utils.counters import bump
 from .utils.logging import span
 
 
@@ -86,7 +87,7 @@ def fused_collect(fs, handle, numiterations: int,
             if trace is not None:
                 trace(b, numiterations - 1, float(best_cost[b]))
             if not fs.verify_parse(b, lit, dst):
-                VERIFY_FAILS[0] += 1
+                bump(VERIFY_FAILS)
                 # Hash collision (cryptographically unlikely): exact host
                 # fallback for this block using the best stats.  Clamp
                 # the window at the owning input's first byte (multi-file
