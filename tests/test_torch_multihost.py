@@ -12,12 +12,18 @@ zopfli_tpu_torch.compress (which routes to compress_multihost), and rank
 bytes (4 processes: 5 masters, one rank gets two and one idles on the
 ragged gather), as tests/test_multihost_procs.py checks the JAX
 package's.  Ranks that pass different data all raise ValueError.
+compress_many inside a 2-process group follows compress blob by blob
+(the reference's gate, zopfli_tpu/__init__.py): rank 0 gets both
+packages' compress_multihost bytes, the empty blob included, and rank 1
+gets None for every blob.
 
-The master size is cut from 1,000,000 to 250,000 bytes in both packages,
-so that a few masters cost seconds, not minutes."""
+The master size is cut from 1,000,000 to 250,000 bytes in both packages
+(4,000 in the compress_many case, whose reference runs the device
+engine), so that a few masters cost seconds, not minutes."""
 
 import importlib
 import os
+import pickle
 import socket
 import subprocess
 import sys
@@ -194,3 +200,60 @@ def test_four_processes_ragged(tmp_path, small_masters):
     # 5 masters over 4 processes: rank 0 gets two, the ragged in-order
     # splice must still give the serial bytes.
     _run_group(tmp_path, 4, 4 * MASTER + 50_000)
+
+
+# The JAX reference in interpret mode takes ~10 s a master at the
+# conftest geometry whatever its size: keep the masters few.  The first
+# blob's three masters give both ranks work.
+MANY_MASTER = 4_000
+
+_MANY_WORKER = r"""
+import pickle, sys
+sys.path.insert(0, {repo!r})
+import torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+rank = int(sys.argv[1])
+dist.init_process_group("gloo", init_method={addr!r}, world_size=2,
+                        rank=rank)
+try:
+    import zopfli_tpu_torch as zt
+    from zopfli_tpu_torch import spec
+    spec.MASTER_BLOCK_SIZE = {master}
+    blobs = pickle.load(open({inpath!r}, "rb"))
+    outs = zt.compress_many(blobs, "gzip",
+                            zt.Options(device="cpu", numiterations=2))
+    with open({outpath!r} + str(rank), "wb") as f:
+        pickle.dump(outs, f)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def test_two_processes_compress_many_device_engine(tmp_path, monkeypatch):
+    monkeypatch.setattr(spec, "MASTER_BLOCK_SIZE", MANY_MASTER)
+    monkeypatch.setattr(ref_spec, "MASTER_BLOCK_SIZE", MANY_MASTER)
+    # The reference on one device, as in the single-process case above.
+    monkeypatch.setattr(importlib.import_module("zopfli_tpu.deflate"),
+                        "_LOCAL_MESH", [None])
+    blobs = [_big(5, 2 * MANY_MASTER + 1_000), _big(6, 1_500), b""]
+    inpath = str(tmp_path / "many.in")
+    outpath = str(tmp_path / "many.out")
+    with open(inpath, "wb") as f:
+        pickle.dump(blobs, f)
+    script = _MANY_WORKER.format(
+        repo=REPO, addr=f"tcp://127.0.0.1:{_free_port()}",
+        master=MANY_MASTER, inpath=inpath, outpath=outpath)
+    assert _spawn(script, 2) == [0, 0]
+    rank0 = pickle.load(open(outpath + "0", "rb"))
+    rank1 = pickle.load(open(outpath + "1", "rb"))
+
+    assert rank1 == [None, None, None]
+    assert len(rank0) == len(blobs)
+    opts = zt.Options(device="cpu", numiterations=2)
+    ref_opts = zopfli_tpu.Options(engine="tpu", numiterations=2)
+    for blob, out in zip(blobs, rank0):
+        assert zlib.decompress(out, 31) == blob
+        assert out == compress_multihost(blob, "gzip", opts)
+        assert out == ref_multihost.compress_multihost(blob, "gzip",
+                                                       ref_opts)

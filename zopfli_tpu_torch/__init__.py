@@ -81,14 +81,18 @@ def compress_many(blobs, fmt: str = "gzip",
     With the device engine, all inputs' master blocks share the fused
     engine's lane groups -- one device loop serves many small files
     (the reference's only analog is the CLI's sequential file loop,
-    zopfli_bin.c:191-211).  The native engine compresses sequentially.
-    Returns one container per input, same semantics as compress().
+    zopfli_bin.c:191-211).  The native engine compresses sequentially,
+    and so does every engine inside a process group of more than one
+    process, where each blob goes through compress() and so through
+    compress_multihost (bytes on rank 0, None elsewhere).  Returns one
+    container per input, same semantics as compress().
     """
     options = options or Options()
     if fmt not in FORMATS:
         raise ValueError(f"unknown format {fmt!r}; expected one of {FORMATS}")
     blobs = [_as_u8(b) for b in blobs]
-    if options.engine != "device":
+    from .parallel import multihost
+    if options.engine != "device" or multihost.active():
         return [compress(b, fmt, options) for b in blobs]
 
     from .deflate import deflate_many
