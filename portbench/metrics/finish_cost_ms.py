@@ -1,0 +1,9 @@
+"""Host ms per call in [zt.finish.cost]: the native cost passes over both
+split sets, inside [zt.finish]. None without [zt.call] (a program
+without these spans); 0 where the span did not run."""
+
+
+def read(view):
+    if not view.intervals("zt.call"):
+        return None
+    return 1e3 * view.span_s("zt.finish.cost") / view.calls

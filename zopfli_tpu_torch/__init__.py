@@ -24,6 +24,7 @@ import numpy as np
 from . import containers
 from .deflate import Options, deflate
 from .emit import BitStream
+from .utils.logging import span
 
 __version__ = "0.1.0"
 
@@ -52,26 +53,34 @@ def compress(data, fmt: str = "gzip", options: Options | None = None) -> bytes:
     sharded over the processes; bytes on rank 0, None elsewhere): every
     process must call it with identical data.
     """
+    with span("zt.call"):
+        return _compress(data, fmt, options)
+
+
+def _compress(data, fmt: str, options: Options | None) -> bytes:
     options = options or Options()
     data = _as_u8(data)
     from .parallel import multihost
     if multihost.active():
         return multihost.compress_multihost(data, fmt, options)
-    if fmt == "deflate":
-        result = deflate_raw(data, options)
-    elif fmt == "gzip":
-        crc = containers.crc32(data)
-        payload = deflate_raw(data, options)
-        result = containers.gzip_frame(payload, crc, len(data))
-    elif fmt == "zlib":
-        adler = containers.adler32(data)
-        payload = deflate_raw(data, options)
-        result = containers.zlib_frame(payload, adler)
-    else:
+    if fmt not in FORMATS:
         raise ValueError(f"unknown format {fmt!r}; expected one of {FORMATS}")
+    payload = deflate_raw(data, options)
+    with span("zt.container"):
+        result = _frame(fmt, payload, data)
     if options.tracer is not None:
         options.tracer.summary(len(data), len(result), fmt)
     return result
+
+
+def _frame(fmt: str, payload: bytes, data: np.ndarray) -> bytes:
+    """`payload` in its container, with the checksum of `data`."""
+    if fmt == "gzip":
+        return containers.gzip_frame(payload, containers.crc32(data),
+                                     len(data))
+    if fmt == "zlib":
+        return containers.zlib_frame(payload, containers.adler32(data))
+    return payload
 
 
 def compress_many(blobs, fmt: str = "gzip",
@@ -87,13 +96,18 @@ def compress_many(blobs, fmt: str = "gzip",
     compress_multihost (bytes on rank 0, None elsewhere).  Returns one
     container per input, same semantics as compress().
     """
+    with span("zt.call"):
+        return _compress_many(blobs, fmt, options)
+
+
+def _compress_many(blobs, fmt: str, options: Options | None) -> list[bytes]:
     options = options or Options()
     if fmt not in FORMATS:
         raise ValueError(f"unknown format {fmt!r}; expected one of {FORMATS}")
     blobs = [_as_u8(b) for b in blobs]
     from .parallel import multihost
     if options.engine != "device" or multihost.active():
-        return [compress(b, fmt, options) for b in blobs]
+        return [_compress(b, fmt, options) for b in blobs]
 
     from .deflate import deflate_many
 
@@ -102,7 +116,7 @@ def compress_many(blobs, fmt: str = "gzip",
     results: list[bytes | None] = [None] * len(blobs)
     for i, b in enumerate(blobs):
         if not len(b):
-            results[i] = compress(b, fmt, options)
+            results[i] = _compress(b, fmt, options)
     if idx:
         data = np.concatenate([blobs[i] for i in idx])
         ranges = []
@@ -112,17 +126,10 @@ def compress_many(blobs, fmt: str = "gzip",
             pos += len(blobs[i])
         outs = [BitStream() for _ in idx]
         deflate_many(options, data, ranges, outs)
-        for k, i in enumerate(idx):
-            payload = outs[k].getvalue()
-            b = blobs[i]
-            if fmt == "deflate":
-                results[i] = payload
-            elif fmt == "gzip":
-                results[i] = containers.gzip_frame(
-                    payload, containers.crc32(b), len(b))
-            else:
-                results[i] = containers.zlib_frame(
-                    payload, containers.adler32(b))
+        payloads = [out.getvalue() for out in outs]
+        with span("zt.container"):
+            for i, payload in zip(idx, payloads):
+                results[i] = _frame(fmt, payload, blobs[i])
     return results
 
 

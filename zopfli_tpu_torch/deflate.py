@@ -201,15 +201,16 @@ def add_lz77_block_auto_type(options: Options, final: bool, store: LZ77Store,
 
     fixedstore = None
     if expensivefixed:
-        instart = int(store.pos[lstart])
-        inend = instart + store.byte_range(lstart, lend)
-        engine = engine_factory(store.data, instart, inend)
-        fixedstore = squeeze.lz77_optimal_fixed(engine, store.data, instart,
-                                                inend)
-        fixedcost = blocks.calculate_block_size(fixedstore, 0,
-                                                fixedstore.size, 1)
-        if hasattr(engine, "close"):
-            engine.close()
+        with span("zt.finish.fixed"):
+            instart = int(store.pos[lstart])
+            inend = instart + store.byte_range(lstart, lend)
+            engine = engine_factory(store.data, instart, inend)
+            fixedstore = squeeze.lz77_optimal_fixed(engine, store.data,
+                                                    instart, inend)
+            fixedcost = blocks.calculate_block_size(fixedstore, 0,
+                                                    fixedstore.size, 1)
+            if hasattr(engine, "close"):
+                engine.close()
 
     if uncompressedcost < fixedcost and uncompressedcost < dyncost:
         add_lz77_block(options, 0, final, store, lstart, lend, out)
@@ -363,14 +364,15 @@ def prepare_second_split(options: Options, stores: list):
     are capacity-independent)."""
     from .ops import devsplit
 
-    lz77 = concat_stores(stores)
-    handle = None
-    if options.blocksplitting and len(stores) > 2:
-        handle = devsplit.block_split_lz77_device_dispatch(
-            lz77.litlens.astype(np.int32), lz77.dists.astype(np.int32),
-            scaled_maxblocks(options, lz77.byte_range(0, lz77.size)),
-            floor=1024, device=resolve_device(options))
-    return lz77, handle
+    with span("zt.presplit"):
+        lz77 = concat_stores(stores)
+        handle = None
+        if options.blocksplitting and len(stores) > 2:
+            handle = devsplit.block_split_lz77_device_dispatch(
+                lz77.litlens.astype(np.int32), lz77.dists.astype(np.int32),
+                scaled_maxblocks(options, lz77.byte_range(0, lz77.size)),
+                floor=1024, device=resolve_device(options))
+        return lz77, handle
 
 
 def emit_results(options: Options, data: np.ndarray, chunk, results,
@@ -430,8 +432,10 @@ def _finish_part(options: Options, final: bool, stores: list,
         return
 
     totalcost = 0.0
-    for st in stores:
-        totalcost += blocks.calculate_block_size_auto_type(st, 0, st.size)
+    with span("zt.finish.cost"):
+        for st in stores:
+            totalcost += blocks.calculate_block_size_auto_type(st, 0,
+                                                               st.size)
 
     if presplit is None and options.engine == "device":
         presplit = prepare_second_split(options, stores)
@@ -450,9 +454,10 @@ def _finish_part(options: Options, final: bool, stores: list,
                 lz77, options.blocksplittingmax)
         totalcost2 = 0.0
         bounds2 = [0] + splitpoints2 + [lz77.size]
-        for i in range(len(bounds2) - 1):
-            totalcost2 += blocks.calculate_block_size_auto_type(
-                lz77, bounds2[i], bounds2[i + 1])
+        with span("zt.finish.cost"):
+            for i in range(len(bounds2) - 1):
+                totalcost2 += blocks.calculate_block_size_auto_type(
+                    lz77, bounds2[i], bounds2[i + 1])
         if totalcost2 < totalcost:
             splitpoints = splitpoints2
 

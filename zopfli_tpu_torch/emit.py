@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .utils.logging import span
+
 
 def reverse_bits(values, lengths, maxbits: int = 15) -> np.ndarray:
     """Bit-reverse each value within its own length (vectorized).
@@ -107,6 +109,10 @@ class BitStream:
 
     def getvalue(self) -> bytes:
         """Pack all staged segments into bytes (final partial byte zero-padded)."""
+        with span("zt.pack"):
+            return self._pack()
+
+    def _pack(self) -> bytes:
         total_bits = self._nbits
         nbytes = (total_bits + 7) // 8
         nwords = nbytes // 8 + 2

@@ -41,6 +41,7 @@ import torch
 
 from .. import spec
 from ..utils.counters import bump
+from ..utils.logging import span
 from . import costmodel, scan_kernel
 from .fused_engine import dist_symbol
 
@@ -532,7 +533,8 @@ def _tables(litlens, dists, ncap: int, nsym):
 def pull_split(state, maxblocks: int) -> tuple[list[int], int]:
     """The one host read of a search: (sp, npts) from its final state;
     counts its rounds, raises if it was cut short."""
-    host = state.cpu().tolist()
+    with span("zt.split_wait"):
+        host = state.cpu().tolist()
     bump(STATS, "syncs")
     bump(STATS, "rounds", host[S_ROUNDS])
     if host[S_OVERFLOW]:

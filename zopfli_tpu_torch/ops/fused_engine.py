@@ -303,14 +303,15 @@ class SqueezeLoop:
         it instead."""
         (_, _, best_cost, best_sll, best_sd, _, _, _, best_pe) = state
         nsym, packed = [], []
-        for bpe in best_pe:
-            empty = (bpe == 0).to(torch.int32)
-            order = torch.sort(empty, dim=1, stable=True).indices
-            pe_c = torch.gather(bpe, 1, order)
-            nsym.append((1 - empty).sum(dim=1).to(self.device))
-            packed.append(pe_c[:, :fetch_cap, :].to(self.device))
-        return (best_cost, best_sll, best_sd, torch.cat(nsym),
-                torch.cat(packed), best_pe)
+        with span("zt.squeeze.compact"):
+            for bpe in best_pe:
+                empty = (bpe == 0).to(torch.int32)
+                order = torch.sort(empty, dim=1, stable=True).indices
+                pe_c = torch.gather(bpe, 1, order)
+                nsym.append((1 - empty).sum(dim=1).to(self.device))
+                packed.append(pe_c[:, :fetch_cap, :].to(self.device))
+            return (best_cost, best_sll, best_sd, torch.cat(nsym),
+                    torch.cat(packed), best_pe)
 
 
 class FusedSqueeze:
@@ -334,6 +335,10 @@ class FusedSqueeze:
         torch devices to shard the lane groups over (the group count
         rounds up to a multiple of their number); `device` keeps the
         candidate tables and the iteration control."""
+        with span("zt.squeeze.prep"):
+            self._setup(data, masters, device, cand, window_starts, devices)
+
+    def _setup(self, data, masters, device, cand, window_starts, devices):
         self.device = dev = torch.device(device)
         self.devices = (None if devices is None
                         else [torch.device(d) for d in devices])
@@ -450,11 +455,10 @@ class FusedSqueeze:
                 buf[hashmatch.PREFIX:hashmatch.PREFIX + L] = \
                     data[instart:inend]
                 buf[hashmatch.PREFIX + L:] = 0
-                with span("zt.candidates"):
-                    bl, bd, _ = hashmatch.build_candidates(
-                        torch.from_numpy(buf).to(dev), cap,
-                        hashmatch.PREFIX - prefix_len, hashmatch.PREFIX + L,
-                        max_bp=KBP, **hashmatch.current_knobs())
+                bl, bd, _ = hashmatch.build_candidates(
+                    torch.from_numpy(buf).to(dev), cap,
+                    hashmatch.PREFIX - prefix_len, hashmatch.PREFIX + L,
+                    max_bp=KBP, **hashmatch.current_knobs())
             bp_len_parts.append(bl)
             bp_dist_parts.append(bd)
             dblock = np.zeros(cap, dtype=np.int32)
@@ -554,13 +558,14 @@ class FusedSqueeze:
         if fetch_cap is None:
             fetch_cap = self.default_fetch_cap
         dev = self.device
-        sll, sd, rep_off = self.initial_stats(seed_ll, seed_d)
-        ll_maps, d_maps = (torch.from_numpy(m).to(dev).long()
-                           for m in costmodel.randomize_maps(MAX_EVENTS))
-        state = self.loop.init_state(torch.from_numpy(sll).to(dev),
-                                     torch.from_numpy(sd).to(dev))
-        state = self.loop.run(state, numiterations, ll_maps, d_maps,
-                              torch.from_numpy(rep_off).to(dev))
+        with span("zt.squeeze.prep"):
+            sll, sd, rep_off = self.initial_stats(seed_ll, seed_d)
+            ll_maps, d_maps = (torch.from_numpy(m).to(dev).long()
+                               for m in costmodel.randomize_maps(MAX_EVENTS))
+            state = self.loop.init_state(torch.from_numpy(sll).to(dev),
+                                         torch.from_numpy(sd).to(dev))
+            rep_off = torch.from_numpy(rep_off).to(dev)
+        state = self.loop.run(state, numiterations, ll_maps, d_maps, rep_off)
         out = self.loop.compact(state, fetch_cap)
         return (out, seed_ll, seed_d, numiterations, fetch_cap)
 
@@ -569,17 +574,19 @@ class FusedSqueeze:
         ((best_cost, best_sll, best_sd, nsym, packed, best_pe),
          seed_ll, seed_d, numiterations, fetch_cap) = handle
 
-        nsym_h = nsym.cpu().numpy().reshape(-1)        # (G*LANES,)
-        over = (nsym_h[:self.nt] > fetch_cap).any()
-        if over:
-            bump(FETCH_RETRIES)
-            pe_h = np.concatenate([p.cpu().numpy()     # (G, TILE, LANES)
-                                   for p in best_pe])
-        else:
-            packed_h = packed.cpu().numpy()            # (G, cap, LANES)
-        cost_all = best_cost.cpu().numpy()[:self.nb_total]
-        best_sll = best_sll.cpu().numpy()
-        best_sd = best_sd.cpu().numpy()
+        with span("zt.collect_wait"):
+            nsym_h = nsym.cpu().numpy().reshape(-1)    # (G*LANES,)
+            over = (nsym_h[:self.nt] > fetch_cap).any()
+            if over:
+                bump(FETCH_RETRIES)
+                with span("zt.fetch_retry"):           # (G, TILE, LANES)
+                    pe_h = np.concatenate([p.cpu().numpy()
+                                           for p in best_pe])
+            else:
+                packed_h = packed.cpu().numpy()        # (G, cap, LANES)
+            cost_all = best_cost.cpu().numpy()[:self.nb_total]
+            best_sll = best_sll.cpu().numpy()
+            best_sd = best_sd.cpu().numpy()
 
         def decode(tiles):
             lit_parts, dist_parts = [], []

@@ -41,6 +41,7 @@ import torch
 
 from .. import spec
 from ..utils.counters import bump
+from ..utils.logging import span
 from . import costmodel, devsplit, fused_engine, hashmatch, scan_kernel
 from . import seed as seed_mod
 
@@ -440,7 +441,8 @@ class MegaResult:
         self.instart, self.inend = instart, inend
         self.fetch_cap = fetch_cap
         self.window_start = window_start
-        host = flat.cpu().numpy()
+        with span("zt.collect_wait"):
+            host = flat.cpu().numpy()
         out, at = {}, 0
         for name, shape in layout:
             n = int(np.prod(shape, dtype=np.int64))
@@ -490,11 +492,13 @@ class MegaResult:
         lanes_used = self.tile_nbytes > 0
         nsym = self._nsym
         over = (nsym[lanes_used] > self.fetch_cap).any()
-        if over:
-            bump(fused_engine.FETCH_RETRIES)
-            pe = self._best_pe.cpu().numpy()     # (G, TILE, LANES)
-        else:
-            packed = self._packed.cpu().numpy()  # (G, cap, LANES)
+        with span("zt.collect_wait"):
+            if over:
+                bump(fused_engine.FETCH_RETRIES)
+                with span("zt.fetch_retry"):
+                    pe = self._best_pe.cpu().numpy()     # (G, TILE, LANES)
+            else:
+                packed = self._packed.cpu().numpy()      # (G, cap, LANES)
 
         block_tiles: dict[int, list[int]] = {}
         for t in range(len(self.tile_block)):

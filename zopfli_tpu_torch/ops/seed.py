@@ -311,13 +311,14 @@ class SeedResult:
     def __init__(self, instart, inend, sp, npts, byte_splits, ll_hist,
                  d_hist, block_costs, nsym_lane, bp_len, bp_dist):
         npts = int(npts)
-        bsp = [int(b) for b in _host(byte_splits)[:npts]]
-        self.bounds = [instart] + [instart + b for b in bsp] + [inend]
         nb = npts + 1
-        self.seed_ll = _host(ll_hist)[:nb].astype(np.int64)
-        self.seed_d = _host(d_hist)[:nb].astype(np.int64)
-        self.block_costs = _host(block_costs)[:nb]
-        self.max_lane_rows = int(np.max(_host(nsym_lane)))
+        with span("zt.stats_wait"):
+            bsp = [int(b) for b in _host(byte_splits)[:npts]]
+            self.seed_ll = _host(ll_hist)[:nb].astype(np.int64)
+            self.seed_d = _host(d_hist)[:nb].astype(np.int64)
+            self.block_costs = _host(block_costs)[:nb]
+            self.max_lane_rows = int(np.max(_host(nsym_lane)))
+        self.bounds = [instart] + [instart + b for b in bsp] + [inend]
         self.bp_len = bp_len
         self.bp_dist = bp_dist
         self.all_stored = all_stored(self.block_costs, self.seed_ll,
@@ -395,12 +396,13 @@ def seed_dispatch(data: np.ndarray, instart: int, inend: int,
     reach back to (file start in multi-file batches where `data`
     concatenates independent inputs).
     """
-    buf, cap, min_pos, inend_real = master_buffer(data, instart, inend,
-                                                  window_start)
+    with span("zt.seed.upload"):
+        buf, cap, min_pos, inend_real = master_buffer(data, instart, inend,
+                                                      window_start)
+        bufd = devsplit.upload(buf, torch.device(device))
     knobs = CHEAP_KNOBS if cheap else hashmatch.current_knobs()
     core = make_seed_core(cap, maxblocks, tuple(sorted(knobs.items())))
-    parsed = core.parse(devsplit.upload(buf, torch.device(device)),
-                        min_pos, inend_real)
+    parsed = core.parse(bufd, min_pos, inend_real)
     bump(PROGRAMS)
     return (instart, inend, core, parsed)
 

@@ -71,41 +71,47 @@ VERIFY_FAILS = [0]
 def fused_collect(fs, handle, numiterations: int,
                   trace=None) -> list[list[LZ77Store]]:
     """Blocking half: pull parses, verify, fall back on collisions."""
-    from . import native
-
     data = fs.data
     with span("zt.collect"):
         parses, best_cost, best_sll, best_sd = fs.collect(handle)
 
     out: list[list[LZ77Store]] = []
     b = 0
-    for (instart, inend, bb) in fs.masters:
-        stores = []
-        for _ in range(len(bb) - 1):
-            bs, be = fs.block_bounds[b]
-            lit, dst = parses[b]
-            if trace is not None:
-                trace(b, numiterations - 1, float(best_cost[b]))
-            if not fs.verify_parse(b, lit, dst):
-                bump(VERIFY_FAILS)
-                # Hash collision (cryptographically unlikely): exact host
-                # fallback for this block using the best stats.  Clamp
-                # the window at the owning input's first byte (multi-file
-                # batches concatenate independent inputs).
-                ws = fs.block_wstart[b]
-                eng = native.BlockEngine(data[ws:], bs - ws, be - ws)
-                try:
-                    ll_cost = np.asarray(
-                        _entropy_f64(best_sll[b]), np.float64)
-                    d_cost = np.asarray(
-                        _entropy_f64(best_sd[b]), np.float64)
-                    lit, dst = eng.squeeze_run(ll_cost, d_cost)
-                finally:
-                    eng.close()
-            stores.append(LZ77Store(data, lit, dst, bs))
-            b += 1
-        out.append(stores)
+    with span("zt.verify"):
+        for (instart, inend, bb) in fs.masters:
+            stores = []
+            for _ in range(len(bb) - 1):
+                bs, be = fs.block_bounds[b]
+                lit, dst = parses[b]
+                if trace is not None:
+                    trace(b, numiterations - 1, float(best_cost[b]))
+                if not fs.verify_parse(b, lit, dst):
+                    bump(VERIFY_FAILS)
+                    with span("zt.verify_fallback"):
+                        lit, dst = _native_squeeze(fs, b, best_sll[b],
+                                                   best_sd[b])
+                stores.append(LZ77Store(data, lit, dst, bs))
+                b += 1
+            out.append(stores)
     return out
+
+
+def _native_squeeze(fs, b: int, sll, sd):
+    """Block b's exact host parse under its best stats, after a hash
+    collision (cryptographically unlikely) spoiled the device's.  The
+    window starts at the owning input's first byte (multi-file batches
+    concatenate independent inputs)."""
+    from . import native
+
+    bs, be = fs.block_bounds[b]
+    ws = fs.block_wstart[b]
+    eng = native.BlockEngine(fs.data[ws:], bs - ws, be - ws)
+    try:
+        ll_cost = np.asarray(_entropy_f64(sll), np.float64)
+        d_cost = np.asarray(_entropy_f64(sd), np.float64)
+        return eng.squeeze_run(ll_cost, d_cost)
+    finally:
+        eng.close()
 
 
 def _entropy_f64(counts: np.ndarray) -> np.ndarray:
@@ -149,7 +155,9 @@ def devseed_fire(data: np.ndarray, ranges, maxblocks: int = 15,
     handles = []
     with span("zt.seed"):
         for (instart, inend), ws in zip(ranges, window_starts):
-            cheap = seed_mod.probably_incompressible(data, instart, inend)
+            with span("zt.seed.probe"):
+                cheap = seed_mod.probably_incompressible(data, instart,
+                                                         inend)
             if not cheap and _use_mega(inend, instart, devices):
                 handles.append(("mega", ws, mega_mod.mega_dispatch(
                     data, instart, inend, maxblocks, numiterations,

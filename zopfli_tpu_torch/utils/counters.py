@@ -8,6 +8,11 @@ squeeze_batched.VERIFY_FAILS), so their readers index them as before.
 not make atomic: masters on worker threads (deflate.deflate with
 Options.workers != 1) bump the same counter at once, and every bump goes
 through one lock here.
+
+The work done twice that FETCH_RETRIES and VERIFY_FAILS count also runs
+under spans of its own, [zt.fetch_retry] and [zt.verify_fallback]
+(utils.logging.span), which the benchmark's `retries_per_call` counts
+per call in a traced run.
 """
 
 from __future__ import annotations

@@ -2,25 +2,42 @@
 
 The reference's observability is stderr prints gated on verbose flags
 (reference: squeeze.c:493-495, deflate.c:721-744, blocksplitter.c:148-180).
-Here the equivalent events flow through a Tracer that can print, collect
-structured records, and bracket torch.profiler traces.
+Here the equivalent events flow through a Tracer that can print and
+collect structured records.
+
+`span(name)` marks a stage of the host's work as a named range on
+torch.profiler's timeline, beside the device's operations; the
+benchmark (`portbench/`) reads the ranges to say where a call's wall
+and the device's idle time go.  Names:
+
+- `zt.<stage>` covers one stage of a call (`zt.call` the whole call);
+- `zt.<stage>.<part>` covers one part of that stage's work;
+- a name ending in `_wait` covers nothing but a blocking read of device
+  results: the host waiting for the device.
+
+No span goes inside a loop that runs per iteration, lane group or tile.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
-from contextlib import contextmanager
 from dataclasses import dataclass, field
+
+_OFF = contextlib.nullcontext()
 
 
 def span(name: str):
-    """A named range in torch.profiler traces (near free when no profiler
-    is recording); chip_smoke.py reads these to split a run's wall time
-    into the pipeline's stages."""
-    import torch
-    return torch.profiler.record_function(name)
+    """A named range in torch.profiler traces while a profiler records;
+    otherwise one shared null context, so that a span costs a lookup
+    and no RecordFunction.  The profiler can only be on once
+    torch.autograd.profiler is loaded, so this never imports torch."""
+    profiler = sys.modules.get("torch.autograd.profiler")
+    if profiler is None or not profiler._is_profiler_enabled:
+        return _OFF
+    return profiler.record_function(name)
 
 
 @dataclass
@@ -61,10 +78,3 @@ class Tracer:
             print(f"Original Size: {insize}, {fmt}: {outsize}, "
                   f"Compression: {removed:f}% Removed", file=sys.stderr)
         self.event("summary", insize=insize, outsize=outsize, format=fmt)
-
-    @contextmanager
-    def profile(self, name: str):
-        """Bracket a region as a named range in torch.profiler traces."""
-        import torch
-        with torch.profiler.record_function(name):
-            yield
