@@ -115,42 +115,19 @@ def add_non_compressed_block(final: bool, data: np.ndarray, instart: int,
 
 def _emit_lz77_data(store: LZ77Store, lstart: int, lend: int,
                     ll_lengths, d_lengths, out: BitStream) -> None:
-    """Vectorized symbol payload emission (reference AddLZ77Data)."""
-    ll_syms = lengths_to_symbols(ll_lengths, 15)
-    d_syms = lengths_to_symbols(d_lengths, 15)
-    ll_lengths = np.asarray(ll_lengths, dtype=np.int64)
-    d_lengths = np.asarray(d_lengths, dtype=np.int64)
-
-    lit = store.litlens[lstart:lend]
-    dist = store.dists[lstart:lend]
-    lsym = store.ll_symbol[lstart:lend]
-    dsym = store.d_symbol[lstart:lend]
-    is_match = dist != 0
-    n = len(lit)
-
-    f_vals = np.zeros((n, 4), dtype=np.uint64)
-    f_bits = np.zeros((n, 4), dtype=np.int64)
-
-    # Field 0: litlen huffman code.
-    code_len = ll_lengths[lsym]
-    f_vals[:, 0] = reverse_bits(ll_syms[lsym], code_len.astype(np.uint32))
-    f_bits[:, 0] = code_len
-    # Field 1: length extra bits (matches only).
-    lit_clip = np.minimum(lit, 258)
-    f_vals[:, 1] = np.where(is_match, spec.LENGTH_EXTRA_VALUE[lit_clip], 0)
-    f_bits[:, 1] = np.where(is_match, spec.LENGTH_EXTRA_BITS[lit_clip], 0)
-    # Field 2: dist huffman code (matches only).
-    dlen = np.where(is_match, d_lengths[dsym], 0)
-    f_vals[:, 2] = np.where(is_match,
-                            reverse_bits(d_syms[dsym], dlen.astype(np.uint32)),
-                            0)
-    f_bits[:, 2] = dlen
-    # Field 3: dist extra bits (matches only).
-    dist_clip = np.maximum(dist, 1)
-    f_vals[:, 3] = np.where(is_match, spec.dist_extra_value(dist_clip), 0)
-    f_bits[:, 3] = np.where(is_match, spec.dist_extra_bits(dist_clip), 0)
-
-    out.bits(f_vals.reshape(-1), f_bits.reshape(-1))
+    """Stage a block's symbol payload (reference AddLZ77Data) as one
+    segment, sized from the block's histogram; the native writer packs it."""
+    ll_lengths = np.asarray(ll_lengths, dtype=np.int32)
+    d_lengths = np.asarray(d_lengths, dtype=np.int32)
+    ll_counts, d_counts = store.histogram(lstart, lend)
+    # block_symbol_size charges the end symbol, which is staged apart.
+    nbits = (blocks.block_symbol_size(ll_counts, d_counts, ll_lengths,
+                                      d_lengths) - int(ll_lengths[256]))
+    out.lz77(store.litlens[lstart:lend], store.dists[lstart:lend],
+             reverse_bits(lengths_to_symbols(ll_lengths, 15), ll_lengths),
+             ll_lengths,
+             reverse_bits(lengths_to_symbols(d_lengths, 15), d_lengths),
+             d_lengths, nbits)
 
 
 def add_lz77_block(options: Options, btype: int, final: bool,

@@ -1,12 +1,10 @@
 """Bitstream assembly for DEFLATE output.
 
-TPU-native redesign of the reference's bit-serial writer
-(reference: src/zopfli/deflate.c:38-72, AddBit/AddBits/AddHuffmanBits).
-Instead of appending one bit at a time, symbols are staged as
-(value, nbits) arrays and packed in one vectorized pass:
-
-  bit offset of field i = prefix_sum(nbits)[i]; each field is OR-ed into a
-  64-bit word pair at (offset >> 6, offset & 63).
+Redesign of the reference's bit-serial writer (reference:
+src/zopfli/deflate.c:38-72, AddBit/AddBits/AddHuffmanBits).  Emission
+stages segments; `getvalue` packs them in one pass of the native bit
+writer (native.put_fields, native.put_lz77), LSB-first from the running
+bit offset into one zero-initialised byte buffer.
 
 DEFLATE bit order: within a byte, fields fill from the least significant
 bit upward; Huffman codes are emitted MSB-first, which is handled by
@@ -15,13 +13,30 @@ bit-reversing the code values before staging (`reverse_bits`).
 The stream is modeled as segments so stored (btype 0) blocks can demand
 byte alignment whose padding depends on the running bit offset:
   ('bits', values, nbits) | ('align',) | ('bytes', payload)
+  | ('lz77', litlens, dists, ll_codes, ll_lengths, d_codes, d_lengths,
+     nbits)
+A 'lz77' segment is a block's symbol payload: the store's symbols as they
+are and the block's code tables, with its exact bit count.
+
+PACKED counts the bits each pack wrote, the payload's ('lz77') and the
+fields' ('bits'); payload_bits / (payload_bits + field_bits) is the
+share of the streams that the payload pass wrote.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from . import native
+from .utils.counters import bump
 from .utils.logging import span
+
+PACKED = {"payload_bits": 0, "field_bits": 0}
+
+
+# _REV8[b]: the byte b with its 8 bits in reverse order.
+_REV8 = np.array([int(f"{b:08b}"[::-1], 2) for b in range(256)],
+                 dtype=np.uint32)
 
 
 def reverse_bits(values, lengths, maxbits: int = 15) -> np.ndarray:
@@ -29,22 +44,22 @@ def reverse_bits(values, lengths, maxbits: int = 15) -> np.ndarray:
 
     A canonical Huffman code must be written MSB-first while DEFLATE packs
     LSB-first; reversing once here lets the packer treat every field
-    uniformly.
+    uniformly.  Bits of a value at or above `maxbits` (at most 16) are
+    dropped.
     """
-    v = np.asarray(values, dtype=np.uint32)
+    if maxbits > 16:
+        raise ValueError("reverse_bits handles at most 16 bits")
+    v = np.asarray(values, dtype=np.uint32) & np.uint32((1 << maxbits) - 1)
     lens = np.asarray(lengths, dtype=np.uint32)
-    out = np.zeros_like(v)
-    work = v.copy()
-    for _ in range(maxbits):
-        out = (out << np.uint32(1)) | (work & np.uint32(1))
-        work >>= np.uint32(1)
-    # out now holds the reversal within maxbits; shift down to the actual
-    # length.
-    return (out >> (np.uint32(maxbits) - lens)).astype(np.uint32)
+    # The 16-bit reversal from two byte reversals, shifted down to the
+    # value's own length.
+    rev16 = ((_REV8[v & np.uint32(0xFF)] << np.uint32(8))
+             | _REV8[v >> np.uint32(8)])
+    return (rev16 >> (np.uint32(16) - lens)).astype(np.uint32)
 
 
 class BitStream:
-    """Append-only DEFLATE bitstream with one-shot vectorized packing."""
+    """Append-only DEFLATE bitstream, packed in one pass at the end."""
 
     def __init__(self):
         self._segments = []
@@ -69,6 +84,21 @@ class BitStream:
             return
         self._segments.append(("bits", v, n))
         self._nbits += int(n.sum())
+
+    def lz77(self, litlens, dists, ll_codes, ll_lengths, d_codes, d_lengths,
+             nbits: int) -> None:
+        """Stage a block's symbol payload (reference AddLZ77Data).
+
+        litlens/dists: the block's symbols, kept as given (int32 slices of
+        a store); ll_codes/ll_lengths (288) and d_codes/d_lengths (32):
+        the block's bit-reversed codes and their lengths; nbits: the
+        payload's exact size, which the pack checks.
+        """
+        if len(litlens) == 0:
+            return
+        self._segments.append(("lz77", litlens, dists, ll_codes, ll_lengths,
+                               d_codes, d_lengths, int(nbits)))
+        self._nbits += int(nbits)
 
     def align_byte(self) -> None:
         """Advance to the next byte boundary with zero bits."""
@@ -103,6 +133,8 @@ class BitStream:
                 nbits += (-(self._nbits + nbits)) & 7
             elif seg[0] == "bytes":
                 nbits += 8 * len(seg[1])
+            elif seg[0] == "lz77":
+                nbits += seg[7]
             else:
                 nbits += int(seg[2].sum())
         self._nbits += nbits
@@ -113,38 +145,51 @@ class BitStream:
             return self._pack()
 
     def _pack(self) -> bytes:
-        total_bits = self._nbits
-        nbytes = (total_bits + 7) // 8
-        nwords = nbytes // 8 + 2
-        words = np.zeros(nwords, dtype=np.uint64)
+        nbytes = (self._nbits + 7) // 8
+        # The native writer stores 8 bytes at a time: 8 spare at the end.
+        buf = np.zeros(nbytes + 8, dtype=np.uint8)
         offset = 0
+        payload_bits = field_bits = 0
+        fields = []  # a run of 'bits' segments, written in one call
         for seg in self._segments:
             kind = seg[0]
+            if kind == "bits":
+                fields.append(seg)
+                continue
+            if fields:
+                end = _put_fields(buf, offset, fields)
+                field_bits += end - offset
+                offset, fields = end, []
             if kind == "align":
                 offset = (offset + 7) & ~7
             elif kind == "bytes":
-                payload = seg[1]
                 assert offset % 8 == 0
-                b = np.frombuffer(payload, dtype=np.uint8)
-                # OR byte payload into the word array via a uint8 view.
-                u8 = words.view(np.uint8)
                 start = offset // 8
-                u8[start : start + len(b)] |= b
-                offset += 8 * len(b)
+                buf[start : start + len(seg[1])] = np.frombuffer(seg[1],
+                                                                 np.uint8)
+                offset += 8 * len(seg[1])
             else:
-                _, v, n = seg
-                seg_bits = int(n.sum())
-                offs = np.cumsum(n) - n + offset
-                widx = (offs >> 6).astype(np.int64)
-                shift = (offs & 63).astype(np.uint64)
-                lo = v << shift
-                inv = np.uint64(64) - shift
-                hi = np.where(shift == 0, np.uint64(0),
-                              v >> np.where(shift == 0, np.uint64(1), inv))
-                np.bitwise_or.at(words, widx, lo)
-                np.bitwise_or.at(words, widx + 1, hi.astype(np.uint64))
-                offset += seg_bits
-        assert offset == total_bits
-        if words.dtype.byteorder not in ("<", "=") or not np.little_endian:
-            words = words.byteswap()
-        return words.view(np.uint8)[:nbytes].tobytes()
+                end = native.put_lz77(buf, offset, *seg[1:7])
+                if end != offset + seg[7]:
+                    raise RuntimeError(
+                        f"a symbol payload wrote {end - offset} bits where"
+                        f" it was staged with {seg[7]}")
+                payload_bits += seg[7]
+                offset = end
+        if fields:
+            end = _put_fields(buf, offset, fields)
+            field_bits += end - offset
+            offset = end
+        assert offset == self._nbits
+        bump(PACKED, "payload_bits", payload_bits)
+        bump(PACKED, "field_bits", field_bits)
+        return buf[:nbytes].tobytes()
+
+
+def _put_fields(buf: np.ndarray, offset: int, fields) -> int:
+    """Write a run of 'bits' segments from `offset`; the offset after it."""
+    if len(fields) == 1:
+        return native.put_fields(buf, offset, fields[0][1], fields[0][2])
+    return native.put_fields(buf, offset,
+                             np.concatenate([f[1] for f in fields]),
+                             np.concatenate([f[2] for f in fields]))

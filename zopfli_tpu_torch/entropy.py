@@ -102,12 +102,13 @@ def lengths_to_symbols(lengths, maxbits: int) -> np.ndarray:
     for bits in range(1, maxbits + 1):
         code = (code + bl_count[bits - 1]) << 1
         next_code[bits] = code
+    # Codes of one length go to its symbols in index order: a stable sort
+    # by length gives each symbol its rank among those of its length.
+    order = np.argsort(lengths, kind="stable")
+    ls = lengths[order]
     symbols = np.zeros(n, dtype=np.int64)
-    for i in range(n):
-        l = lengths[i]
-        if l != 0:
-            symbols[i] = next_code[l]
-            next_code[l] += 1
+    symbols[order] = next_code[ls] + np.arange(n) - np.searchsorted(ls, ls)
+    symbols[lengths == 0] = 0
     return symbols.astype(np.uint32)
 
 

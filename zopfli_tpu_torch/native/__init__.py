@@ -90,6 +90,15 @@ def lib() -> ctypes.CDLL:
         l.zt_crc32.argtypes = [ctypes.c_uint32, u8p, ctypes.c_int64]
         l.zt_adler32.restype = ctypes.c_uint32
         l.zt_adler32.argtypes = [ctypes.c_uint32, u8p, ctypes.c_int64]
+        vp = ctypes.c_void_p
+        l.zt_put_fields.restype = ctypes.c_int64
+        l.zt_put_fields.argtypes = [vp, ctypes.c_int64, ctypes.c_int64, vp,
+                                    vp, ctypes.c_int64]
+        l.zt_put_lz77.restype = ctypes.c_int64
+        l.zt_put_lz77.argtypes = [vp, ctypes.c_int64, ctypes.c_int64, vp, vp,
+                                  ctypes.c_int64, vp, vp, vp, vp]
+        l.zt_tree_sizes.restype = None
+        l.zt_tree_sizes.argtypes = [i32p, i32p, i64p]
         _lib = l
         return _lib
 
@@ -236,6 +245,20 @@ def hist_dynamic_cost(ll_counts: np.ndarray, d_counts: np.ndarray,
     return float(cost)
 
 
+def tree_sizes(ll_lengths: np.ndarray, d_lengths: np.ndarray) -> np.ndarray:
+    """Bits of the 8 tree-header encodings of a dynamic block (variant i
+    uses code 16 if i & 1, 17 if i & 2, 18 if i & 4)."""
+    ll = np.ascontiguousarray(ll_lengths, dtype=np.int32)
+    d = np.ascontiguousarray(d_lengths, dtype=np.int32)
+    if ll.shape != (288,) or d.shape != (32,):
+        raise ValueError("tree_sizes takes 288 and 32 code lengths")
+    out = np.empty(8, dtype=np.int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib().zt_tree_sizes(ll.ctypes.data_as(i32p), d.ctypes.data_as(i32p),
+                        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)))
+    return out
+
+
 def traceback_tiles(cl: np.ndarray, cd: np.ndarray, data_tile: np.ndarray,
                     tile_nbytes: np.ndarray):
     """Batch traceback of parse tiles -> (litlens, dists) uint16 arrays."""
@@ -267,3 +290,66 @@ def crc32(data: np.ndarray, value: int = 0) -> int:
 
 def adler32(data: np.ndarray, value: int = 1) -> int:
     return int(lib().zt_adler32(value, _u8ptr(data), len(data)))
+
+
+def _writable_u8(buf: np.ndarray) -> None:
+    if (buf.dtype != np.uint8 or buf.ndim != 1
+            or not buf.flags.c_contiguous or not buf.flags.writeable):
+        raise ValueError("the bit writer needs a writable 1-D uint8 buffer")
+
+
+def put_fields(buf: np.ndarray, bit: int, values: np.ndarray,
+               nbits: np.ndarray) -> int:
+    """Write LSB-first fields into `buf` (zero past bit offset `bit`, with
+    8 spare bytes past the fields) and return the bit offset after them."""
+    _writable_u8(buf)
+    values = np.ascontiguousarray(values, dtype=np.uint64)
+    nbits = np.ascontiguousarray(nbits, dtype=np.int64)
+    if values.shape != nbits.shape:
+        raise ValueError("put_fields: values and nbits differ in shape")
+    end = lib().zt_put_fields(buf.ctypes.data, buf.size, bit,
+                              values.ctypes.data, nbits.ctypes.data,
+                              values.size)
+    if end < 0:
+        raise ValueError("put_fields: a width outside 0..64, or the fields"
+                         " run past the buffer")
+    return end
+
+
+def put_lz77(buf: np.ndarray, bit: int, litlens: np.ndarray,
+             dists: np.ndarray, ll_codes: np.ndarray, ll_lengths: np.ndarray,
+             d_codes: np.ndarray, d_lengths: np.ndarray) -> int:
+    """Write a block's symbol payload into `buf` (zero past bit offset
+    `bit`, with 8 spare bytes past the payload) and return the bit offset
+    after it.
+
+    litlens/dists: the block's symbols (int32); ll_codes/ll_lengths (288)
+    and d_codes/d_lengths (32): its bit-reversed codes and their lengths.
+    """
+    _writable_u8(buf)
+    litlens = np.ascontiguousarray(litlens, dtype=np.int32)
+    dists = np.ascontiguousarray(dists, dtype=np.int32)
+    if litlens.shape != dists.shape:
+        raise ValueError("put_lz77: litlens and dists differ in shape")
+    ll_codes = np.ascontiguousarray(ll_codes, dtype=np.uint32)
+    ll_lengths = np.ascontiguousarray(ll_lengths, dtype=np.int32)
+    d_codes = np.ascontiguousarray(d_codes, dtype=np.uint32)
+    d_lengths = np.ascontiguousarray(d_lengths, dtype=np.int32)
+    for a, n in ((ll_codes, 288), (ll_lengths, 288), (d_codes, 32),
+                 (d_lengths, 32)):
+        if a.shape != (n,):
+            raise ValueError(f"put_lz77: a code table of shape {a.shape},"
+                             f" not ({n},)")
+    if (ll_lengths.min() < 0 or ll_lengths.max() > 15 or d_lengths.min() < 0
+            or d_lengths.max() > 15):
+        raise ValueError("put_lz77: a code length outside 0..15")
+    end = lib().zt_put_lz77(buf.ctypes.data, buf.size, bit,
+                            litlens.ctypes.data, dists.ctypes.data,
+                            litlens.size, ll_codes.ctypes.data,
+                            ll_lengths.ctypes.data, d_codes.ctypes.data,
+                            d_lengths.ctypes.data)
+    if end == -2:
+        raise ValueError("put_lz77: a symbol outside DEFLATE's ranges")
+    if end < 0:
+        raise ValueError("put_lz77: the payload runs past the buffer")
+    return end

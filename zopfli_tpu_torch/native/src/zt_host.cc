@@ -33,24 +33,28 @@ constexpr double kLargeFloat = 1e30;
 // DEFLATE symbol helpers (RFC 1951 3.2.5).
 // ---------------------------------------------------------------------------
 
-static inline int LengthSymbol(int l) {
-  // 257..285 for l in 3..258.
-  static int table[259];
-  static bool init = false;
-  if (!init) {
+// Filled when the library loads, so threads that call into it at once
+// (masters on worker threads) never race on a lazy fill.
+struct LengthSymbolTable {
+  int t[259];
+  LengthSymbolTable() : t() {
     int sym = 257, base = 3;
     const int ebits[29] = {0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 2, 2, 2, 2,
                            3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 5, 5, 0};
     for (int s = 0; s < 28; ++s) {
       int span = 1 << ebits[s];
-      for (int i = 0; i < span && base + i <= 258; ++i) table[base + i] = sym;
+      for (int i = 0; i < span && base + i <= 258; ++i) t[base + i] = sym;
       base += span;
       ++sym;
     }
-    table[258] = 285;
-    init = true;
+    t[258] = 285;
   }
-  return table[l];
+};
+static const LengthSymbolTable g_length_symbol;
+
+static inline int LengthSymbol(int l) {
+  // 257..285 for l in 3..258.
+  return g_length_symbol.t[l];
 }
 
 static inline int LengthExtraBits(int l) {
@@ -73,6 +77,15 @@ static inline int DistSymbol(int dist) {
 static inline int DistExtraBits(int dist) {
   if (dist < 5) return 0;
   return (31 - __builtin_clz(dist - 1)) - 1;
+}
+
+// The values of the extra bits: the offset from the symbol's base.
+static inline int LengthExtraValue(int l) {
+  return (l - 3) & ((1 << LengthExtraBits(l)) - 1);
+}
+
+static inline int DistExtraValue(int dist) {
+  return (dist - 1) & ((1 << DistExtraBits(dist)) - 1);
 }
 
 // ---------------------------------------------------------------------------
@@ -1047,6 +1060,53 @@ static double BlockCostAuto(const CostContext& ctx, int64_t lstart,
   return fixed < dyn ? fixed : dyn;
 }
 
+// ---------------------------------------------------------------------------
+// Bit writer: DEFLATE's order, LSB-first within each byte (RFC 1951 3.1.1).
+// ---------------------------------------------------------------------------
+
+static_assert(__BYTE_ORDER__ == __ORDER_LITTLE_ENDIAN__,
+              "BitWriter stores its accumulator as little-endian bytes");
+
+// Writes fields into a zero-initialised buffer from any bit offset and
+// keeps the bits already in the first byte.  Each put stores the whole
+// 64-bit accumulator at the current byte, so the buffer needs 8 bytes
+// past the last one written; fewer than 8 bits stay in the accumulator
+// between puts, so a put of up to 56 bits always fits.  Past `cap` bytes
+// nothing is written and Finish reports -1.
+class BitWriter {
+ public:
+  BitWriter(uint8_t* buf, int64_t cap, int64_t bit)
+      : buf_(buf), cap_(cap), pos_(bit >> 3), n_((int)(bit & 7)) {
+    ok_ = bit >= 0 && (bit >> 3) + 8 <= cap;
+    if (ok_ && n_ != 0) acc_ = buf_[pos_] & ((1u << n_) - 1);
+  }
+
+  // v < 2^nb, nb <= 56.
+  inline void Put(uint64_t v, int nb) {
+    acc_ |= v << n_;
+    n_ += nb;
+    if (pos_ + 8 > cap_) {
+      ok_ = false;
+      return;
+    }
+    std::memcpy(buf_ + pos_, &acc_, 8);
+    pos_ += n_ >> 3;
+    acc_ >>= n_ & ~7;
+    n_ &= 7;
+  }
+
+  // The bit offset after the fields, or -1 if they ran past the buffer.
+  int64_t Finish() const { return ok_ ? pos_ * 8 + n_ : -1; }
+
+ private:
+  uint8_t* buf_;
+  int64_t cap_;
+  int64_t pos_;
+  int n_;
+  uint64_t acc_ = 0;
+  bool ok_;
+};
+
 }  // namespace zt
 
 // ---------------------------------------------------------------------------
@@ -1219,6 +1279,79 @@ uint32_t zt_crc32(uint32_t crc, const uint8_t* data, int64_t n) {
 
 uint32_t zt_adler32(uint32_t adler, const uint8_t* data, int64_t n) {
   return zt::Adler32(adler, data, n);
+}
+
+// The sizes in bits of the 8 tree-header encodings (use16 = i & 1,
+// use17 = i & 2, use18 = i & 4) of a dynamic block's code lengths.
+void zt_tree_sizes(const int32_t* ll_lengths, const int32_t* d_lengths,
+                   int64_t* out) {
+  for (int i = 0; i < 8; ++i)
+    out[i] = zt::EncodeTreeSize(ll_lengths, d_lengths, i & 1, i & 2, i & 4);
+}
+
+// Generic fields (headers, trees): values[i] in its low nbits[i] bits,
+// 0 <= nbits[i] <= 64, written in order from bit offset `bit` of `buf`
+// (cap bytes, zero past the offset, 8 of them spare past the fields).
+// Returns the new bit offset, or -1 past the buffer or on a width
+// outside 0..64.
+int64_t zt_put_fields(uint8_t* buf, int64_t cap, int64_t bit,
+                      const uint64_t* values, const int64_t* nbits,
+                      int64_t n) {
+  zt::BitWriter w(buf, cap, bit);
+  for (int64_t i = 0; i < n; ++i) {
+    int64_t nb = nbits[i];
+    if (nb < 0 || nb > 64) return -1;
+    uint64_t v = nb == 64 ? values[i] : values[i] & ((1ull << nb) - 1);
+    if (nb > 32) {
+      w.Put(v & 0xffffffffull, 32);
+      w.Put(v >> 32, (int)nb - 32);
+    } else {
+      w.Put(v, (int)nb);
+    }
+  }
+  return w.Finish();
+}
+
+// A block's symbol payload (reference AddLZ77Data): per symbol its
+// litlen code and, for a match, the length's extra bits, the distance
+// code and the distance's extra bits, into `buf` as zt_put_fields does.
+// ll_code/ll_len (288) and d_code/d_len (32) are the block's bit-reversed
+// codes and their lengths.  Returns the new bit offset, -1 past the
+// buffer, or -2 on a symbol outside DEFLATE's ranges (a literal past 255,
+// a length outside 3..258, a distance outside 1..32768).
+int64_t zt_put_lz77(uint8_t* buf, int64_t cap, int64_t bit,
+                    const int32_t* litlens, const int32_t* dists, int64_t n,
+                    const uint32_t* ll_code, const int32_t* ll_len,
+                    const uint32_t* d_code, const int32_t* d_len) {
+  // A length's code and extra bits in one field (at most 15 + 5 bits).
+  uint32_t len_val[zt::kMaxMatch + 1] = {};
+  int len_bits[zt::kMaxMatch + 1] = {};
+  for (int l = zt::kMinMatch; l <= zt::kMaxMatch; ++l) {
+    int s = zt::LengthSymbol(l);
+    len_val[l] = ll_code[s] | ((uint32_t)zt::LengthExtraValue(l) << ll_len[s]);
+    len_bits[l] = ll_len[s] + zt::LengthExtraBits(l);
+  }
+  zt::BitWriter w(buf, cap, bit);
+  for (int64_t i = 0; i < n; ++i) {
+    int32_t l = litlens[i];
+    int32_t d = dists[i];
+    if (d == 0) {
+      if ((uint32_t)l > 255) return -2;
+      w.Put(ll_code[l], ll_len[l]);
+    } else {
+      if (l < zt::kMinMatch || l > zt::kMaxMatch || d < 1 ||
+          d > zt::kWindowSize)
+        return -2;
+      // The distance's code and extra bits (at most 15 + 13 bits) after
+      // the length's: one put of at most 48 bits.
+      int s = zt::DistSymbol(d);
+      uint64_t dist_val =
+          d_code[s] | ((uint64_t)zt::DistExtraValue(d) << d_len[s]);
+      w.Put(len_val[l] | (dist_val << len_bits[l]),
+            len_bits[l] + d_len[s] + zt::DistExtraBits(d));
+    }
+  }
+  return w.Finish();
 }
 
 }  // extern "C"

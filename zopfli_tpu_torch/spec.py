@@ -43,7 +43,7 @@ CL_ORDER = np.array(
 
 
 def _build_length_tables():
-    """Build length->symbol/extra-bits/extra-value tables for l in 0..258."""
+    """Build length->symbol/extra-bits tables for l in 0..258."""
     # (symbol, base_length, extra_bits) triples per RFC 1951 3.2.5.
     bases = []
     sym = 257
@@ -57,7 +57,6 @@ def _build_length_tables():
 
     symbol = np.zeros(MAX_MATCH + 1, dtype=np.int32)
     extra_bits = np.zeros(MAX_MATCH + 1, dtype=np.int32)
-    extra_val = np.zeros(MAX_MATCH + 1, dtype=np.int32)
     for s, base, eb in bases:
         span = 1 << eb
         hi = min(base + span, MAX_MATCH + 1)
@@ -65,10 +64,9 @@ def _build_length_tables():
             # length 258 must map to symbol 285 (handled by later overwrite).
             symbol[length] = s
             extra_bits[length] = eb
-            extra_val[length] = length - base
     # The 285 entry overwrites the tail of symbol 284's range.
-    symbol[258], extra_bits[258], extra_val[258] = 285, 0, 0
-    return symbol, extra_bits, extra_val
+    symbol[258], extra_bits[258] = 285, 0
+    return symbol, extra_bits
 
 
 def _build_dist_tables():
@@ -85,7 +83,7 @@ def _build_dist_tables():
     return base, eb
 
 
-LENGTH_SYMBOL, LENGTH_EXTRA_BITS, LENGTH_EXTRA_VALUE = _build_length_tables()
+LENGTH_SYMBOL, LENGTH_EXTRA_BITS = _build_length_tables()
 DIST_SYM_BASE, DIST_SYM_EXTRA_BITS = _build_dist_tables()
 
 # Extra bits indexed by *length symbol* (257..285 -> index 0..28).
@@ -112,18 +110,6 @@ def dist_symbol(dist):
     r = (d1 >> np.maximum(lg - 1, 0)) & 1
     sym = np.where(dist < 5, dist - 1, 2 * lg + r)
     return sym.astype(np.int32)
-
-
-def dist_extra_bits(dist):
-    """Number of extra bits for a distance (vectorized)."""
-    s = dist_symbol(dist)
-    return DIST_SYM_EXTRA_BITS[s]
-
-
-def dist_extra_value(dist):
-    """Value of the extra bits for a distance (vectorized)."""
-    s = dist_symbol(dist)
-    return (np.asarray(dist) - DIST_SYM_BASE[s]).astype(np.int32)
 
 
 def fixed_tree_lengths():

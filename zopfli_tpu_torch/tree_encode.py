@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import entropy
+from . import entropy, native
 from .emit import BitStream, reverse_bits
 from .spec import CL_ORDER, NUM_D, NUM_LL
 
@@ -150,15 +150,9 @@ def calculate_tree_size(ll_lengths, d_lengths) -> int:
 
 
 def add_dynamic_tree(ll_lengths, d_lengths, out: BitStream) -> None:
-    """Emit the smallest of the 8 tree-encoding variants."""
-    best = 0
-    bestsize = None
-    for i in range(8):
-        s = encode_tree(ll_lengths, d_lengths, bool(i & 1), bool(i & 2),
-                        bool(i & 4), None)
-        if bestsize is None or s < bestsize:
-            bestsize = s
-            best = i
+    """Emit the smallest of the 8 tree-encoding variants (the first of
+    equal sizes), sized by the native encoder's `tree_sizes`."""
+    best = int(np.argmin(native.tree_sizes(ll_lengths, d_lengths)))
     encode_tree(ll_lengths, d_lengths, bool(best & 1), bool(best & 2),
                 bool(best & 4), out)
 

@@ -3,7 +3,10 @@
 The counters themselves stay plain module-level dicts and one-element
 lists (scan_kernel.LAUNCHES, devsplit.STATS, seed.PROGRAMS,
 engine.FALLBACKS, fused_engine.FETCH_RETRIES,
-squeeze_batched.VERIFY_FAILS), so their readers index them as before.
+squeeze_batched.VERIFY_FAILS, emit.PACKED), so their readers index them
+as before.  emit.PACKED counts the bits that each BitStream pack wrote
+with the native payload pass ("payload_bits") and as header and tree
+fields ("field_bits").
 `counter[key] += n` is a read-modify-write that the interpreter lock does
 not make atomic: masters on worker threads (deflate.deflate with
 Options.workers != 1) bump the same counter at once, and every bump goes
