@@ -16,6 +16,7 @@ were shown to fail a control.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -30,11 +31,12 @@ from portbench.manifest import Manifest  # noqa: E402
 from portbench.reference import control  # noqa: E402
 
 
-def control_entry(name: str):
+def control_entry(name: str, man: Manifest):
+    program = functools.partial(calls.program_entry, man=man)
     if name == "program":
-        return calls.program_entry
-    return lambda call, config: control.entry(call, config,
-                                              calls.program_entry, name)
+        return program
+    return lambda call, config: control.entry(call, config, program, name,
+                                              man)
 
 
 def main(argv=None) -> int:
@@ -52,7 +54,7 @@ def main(argv=None) -> int:
     for seed in (int(s) for s in args.seeds.split(",")):
         for name in names:
             r = run.run_cell(man, args.workload, seed, args.seconds, False,
-                             make_entry=control_entry(name),
+                             make_entry=control_entry(name, man),
                              device_info=no_card)
             print(json.dumps({"side": name, "seed": seed,
                               "correct": r["correct"],

@@ -1,11 +1,20 @@
-"""Finds a cell's configuration, traffic mix and metric readers by name.
+"""Finds every part of a cell by name: its configuration, its traffic
+mix, and the code each of them names.
 
 The manifest is `BENCHMARK.json` at the checkout's root.  A cell names a
-configuration (its `file` in the manifest), a traffic mix
-(`traffic/<name>.json`) and, through the metrics, readers
-(`metrics/<name>.py`, each with `read(view) -> float | None`).  A new
-cell, configuration, mix or metric is a new file and a new entry:
-nothing here changes for it.
+configuration (its `file` in the manifest) and a traffic mix
+(`traffic/<name>.json`).  The code is a file a name, under the bench dir:
+- `inputs/<kind>.py`, `items(mix, seed) -> list[Item]`: the mix's
+  `inputs`;
+- `entries/<call>.py`, `entry(config) -> run(items) -> outputs`: the
+  mix's `call`;
+- `reference/formats/<format>.py`, `judge(out, item) -> str | None` and
+  `zlib9_size(item) -> int`: the configuration's `format`;
+- `reference/encoders/<name>.py`, `encode(item) -> bytes`: the
+  `encoder` of a configuration's control;
+- `metrics/<name>.py`, `read(view) -> float | None`: each metric.
+A new cell, configuration, mix, input kind, entry, format, control or
+metric is a new file and a new entry: nothing here changes for it.
 """
 
 from __future__ import annotations
@@ -51,12 +60,18 @@ class Manifest:
         return [m for m in self.data[kind]
                 if "workloads" not in m or cell_name in m["workloads"]]
 
-    def reader(self, metric: str):
-        """`read(view)` of metrics/<metric>.py."""
-        path = os.path.join(self.bench_dir, "metrics", metric + ".py")
+    def module(self, subdir: str, name: str):
+        """The module of `<bench_dir>/<subdir>/<name>.py`, loaded anew."""
+        path = os.path.join(self.bench_dir, subdir, name + ".py")
+        if not os.path.isfile(path):
+            raise FileNotFoundError(f"no {subdir} {name!r}: {path} is missing")
+        tag = f"portbench_{subdir}_{name}"
         spec = importlib.util.spec_from_file_location(
-            "portbench_metric_" + metric.replace("-", "_").replace(".", "_"),
-            path)
+            "".join(c if c.isalnum() else "_" for c in tag), path)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        return mod.read
+        return mod
+
+    def reader(self, metric: str):
+        """`read(view)` of metrics/<metric>.py."""
+        return self.module("metrics", metric).read

@@ -23,6 +23,7 @@ result.
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import os
@@ -188,14 +189,18 @@ def pool_outs(recs) -> dict:
 
 
 def run_cell(man: Manifest, name: str, seed: int, seconds: float,
-             trace: bool, make_entry=calls.program_entry,
-             device_info=card_info) -> dict:
-    """One run of cell `name`: the result line as a dict."""
+             trace: bool, make_entry=None, device_info=card_info) -> dict:
+    """One run of cell `name`: the result line as a dict.  `make_entry
+    (call, config)` gives the timed path; by default the program's
+    entry, `calls.program_entry`, found under `man`'s bench dir."""
     cell = man.cell(name)
     config = man.config(cell["config"])
     mix = man.traffic(cell["traffic"])
+    make_entry = make_entry or functools.partial(calls.program_entry,
+                                                 man=man)
     entry = make_entry(mix["call"], config)
-    pool = gen.make_pool(mix, seed)
+    fmt = man.module("reference/formats", config["format"])
+    pool = gen.make_pool(mix, seed, man)
     for items in pool.calls[:pool.cycle]:
         entry(items)
     sync()
@@ -211,7 +216,7 @@ def run_cell(man: Manifest, name: str, seed: int, seconds: float,
     sync()
     device = device_info(cell["chips"])
 
-    checker = calls.Checker(config["format"])
+    checker = calls.Checker(fmt)
     missing = 0
     for r in recs + after:
         if r.outs is None or len(r.outs) != len(r.items):

@@ -14,17 +14,25 @@ TEXT_MIX = {"inputs": "text", "call": "compress", "per_call": 1,
 BATCH_MIX = dict(TEXT_MIX, call="compress_many", per_call=4)
 
 
-def make_manifest(tmp, cells, configs=None, mixes=None, metrics=None):
+COPIED = ("metrics", "configs", "data", "inputs", "entries",
+          "reference/formats", "reference/encoders")
+
+
+def make_manifest(tmp, cells, configs=None, mixes=None, metrics=None,
+                  files=None):
     """A root `tmp` with BENCHMARK.json (the real one's metrics, and
-    `cells`) and a bench dir holding the real configs, metrics and the
-    given extra configs {name: dict}, mixes {name: dict} and metric
-    sources {name: str}."""
+    `cells`) and a bench dir holding copies of the real `COPIED`
+    directories and the given extra configs {name: dict}, mixes
+    {name: dict}, metric sources {name: str} and other files
+    {path under the bench dir: source}."""
     bench = os.path.join(tmp, "pb")
-    shutil.copytree(os.path.join(HERE, "metrics"),
-                    os.path.join(bench, "metrics"))
-    shutil.copytree(os.path.join(HERE, "configs"),
-                    os.path.join(bench, "configs"))
+    for d in COPIED:
+        shutil.copytree(os.path.join(HERE, d), os.path.join(bench, d),
+                        ignore=shutil.ignore_patterns("__pycache__"))
     os.makedirs(os.path.join(bench, "traffic"))
+    for rel, src in (files or {}).items():
+        with open(os.path.join(bench, rel), "x") as f:
+            f.write(src)
     with open(os.path.join(ROOT, "BENCHMARK.json")) as f:
         man = json.load(f)
     man["configs"] = [dict(c, file=c["file"].replace("portbench/", "pb/"))

@@ -57,7 +57,8 @@ def test_cells(bench):
         assert (w["config"], w["traffic"]) not in pairs
         pairs.add((w["config"], w["traffic"]))
         mix = m.traffic(w["traffic"])
-        assert mix["call"] in ("compress", "compress_many")
+        assert os.path.isfile(os.path.join(m.bench_dir, "entries",
+                                           mix["call"] + ".py"))
         e2e = {x["name"] for x in m.metrics(w["name"], "end_to_end")}
         assert "setup_s" in e2e and len(e2e) >= 2
         assert m.metrics(w["name"], "per_layer")

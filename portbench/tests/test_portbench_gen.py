@@ -5,11 +5,13 @@ import pytest
 from portbench import gen
 from portbench.manifest import Manifest
 
+text = Manifest().module("inputs", "text")
+
 MIXES = ("canterbury-large", "canterbury", "calgary-batch")
 
 
 def test_corpus_matches_its_manifest():
-    blob, files = gen.load_corpus()
+    blob, files = text.load_corpus()
     assert len(blob) == 426825
     assert zlib.crc32(blob) == 283473244
     assert len(files) == 47 and files[-1][2] == len(blob)
@@ -42,8 +44,8 @@ def test_every_pass_deals_each_size_once(mix):
 
 
 def test_items_are_consecutive_cuts_of_the_corpus():
-    blob, _ = gen.load_corpus()
-    items = gen.text_items(blob, [5000, 3 * len(blob), 7], 1, 5)
+    blob, _ = text.load_corpus()
+    items = text.text_items(blob, [5000, 3 * len(blob), 7], 1, 5)
     joined = b"".join(i.raw for i in items)
     start = (blob * 2).find(joined[:4096])
     assert start >= 0
@@ -52,8 +54,8 @@ def test_items_are_consecutive_cuts_of_the_corpus():
 
 
 def test_text_repeats_lie_past_the_window():
-    blob, _ = gen.load_corpus()
-    item = gen.text_items(blob, [3 * len(blob)], 1, 5)[0]
+    blob, _ = text.load_corpus()
+    item = text.text_items(blob, [3 * len(blob)], 1, 5)[0]
     n = len(blob)
     assert item.raw[:n] == item.raw[n:2 * n]
     assert n > 32768                # farther back than the window
