@@ -286,6 +286,46 @@ def test_optimize_many_device_cpu_identical_to_tpu(monkeypatch):
         assert np.array_equal(codec.decode(out)[0], codec.decode(png)[0])
 
 
+def _photos(shapes):
+    """Photo-like PNGs from the benchmark's PNG kind, at the benchmark's
+    generator settings and writer, at small (h, w)."""
+    from portbench.manifest import Manifest
+    man = Manifest()
+    kind, mix = man.module("inputs", "png"), man.traffic("photos")
+    return [kind.save(kind.photo(np.random.default_rng([k, h, w]), h, w,
+                                 mix["photo"]), mix["writer"])
+            for k, (h, w) in enumerate(shapes)]
+
+
+@pytest.mark.parametrize("engine,shapes", [
+    ("native", [(48, 64)]), ("native", [(64, 48)]),
+    ("native", [(48, 64), (64, 48), (48, 64)]),
+    ("device", [(48, 64), (64, 48)])])
+def test_optimize_many_photos_identical(engine, shapes, monkeypatch):
+    """The benchmark cell's kind of input, landscape and portrait, alone
+    and in one batch: the bytes of both packages' optimize_many at the
+    defaults but for the iterations; the native engine on both sides,
+    or the port's device engine on the CPU against the TPU engine."""
+    pngs = _photos(shapes)
+    kw = dict(num_iterations=2, num_iterations_large=2)
+    if engine == "native":
+        ours = opt.optimize_many(pngs, opt.PNGOptions(engine="native", **kw))
+        ref = ref_opt.optimize_many(pngs, ref_opt.PNGOptions(
+            engine="native", **kw))
+    else:
+        for var in ("ZT_SEED", "ZT_DEVICE_SPLIT", "ZT_MEGA",
+                    "ZT_MASTER_SIZE"):
+            monkeypatch.delenv(var, raising=False)
+        monkeypatch.setattr(importlib.import_module("zopfli_tpu.deflate"),
+                            "_LOCAL_MESH", [None])
+        ref = ref_opt.optimize_many(pngs, ref_opt.PNGOptions(
+            engine="tpu", **kw))
+        ours = opt.optimize_many(pngs, opt.PNGOptions(device="cpu", **kw))
+    assert ours == ref
+    for png, out in zip(pngs, ours):
+        assert np.array_equal(codec.decode(out)[0], codec.decode(png)[0])
+
+
 def test_default_options_run_on_cuda_and_never_fall_back():
     o = opt.PNGOptions()
     assert (o.engine, o.device) == ("device", "cuda")

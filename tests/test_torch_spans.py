@@ -12,7 +12,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import zopfli_tpu_torch as zt
+from portbench.manifest import Manifest
 from zopfli_tpu_torch.ops import fused_engine
+from zopfli_tpu_torch.png.optimize import PNGOptions, optimize_many
 from zopfli_tpu_torch.squeeze_batched import VERIFY_FAILS
 from zopfli_tpu_torch.utils.logging import span
 
@@ -126,6 +128,37 @@ def test_retry_spans_count_what_the_counters_count(monkeypatch):
     for sp in spans:
         if sp[0] in RETRIES:
             assert _inside(sp, spans, RETRIES[sp[0]]), sp
+
+
+def test_png_spans_count_the_optimizers_stages():
+    """`optimize_many` of two photos from the benchmark's PNG kind: one
+    [zt.png.prepare], [zt.png.probe] and [zt.png.verify] an image, the
+    automatic strategy's eight trials inside each probe, and one
+    [zt.png.deflate] (one iteration budget) holding the port's
+    [zt.call]."""
+    man = Manifest()
+    kind, mix = man.module("inputs", "png"), man.traffic("photos")
+    pngs = [kind.save(kind.photo(np.random.default_rng(k), h, w,
+                                 mix["photo"]), mix["writer"])
+            for k, (h, w) in enumerate([(12, 20), (20, 12)])]
+    opts = PNGOptions(device="cpu", num_iterations=1)
+    plain = optimize_many(pngs, opts)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        outs = optimize_many(pngs, opts)
+    assert outs == plain
+    spans = _spans(prof)
+    count = {n: sum(s[0] == n for s in spans) for n in (
+        "zt.png.prepare", "zt.png.probe", "zt.png.trial", "zt.png.deflate",
+        "zt.png.verify", "zt.call")}
+    assert count == {"zt.png.prepare": 2, "zt.png.probe": 2,
+                     "zt.png.trial": 16, "zt.png.deflate": 1,
+                     "zt.png.verify": 2, "zt.call": 1}
+    for sp in spans:
+        want = {"zt.png.probe": ("zt.png.prepare",),
+                "zt.png.trial": ("zt.png.probe",),
+                "zt.call": ("zt.png.deflate",)}.get(sp[0])
+        if want:
+            assert _inside(sp, spans, want), sp
 
 
 def test_span_without_a_profiler_is_one_shared_null_context(monkeypatch):
