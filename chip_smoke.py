@@ -78,10 +78,12 @@ Phases, each printed as one JSON line:
      output must decode to its input's pixels, K1 == K2 > 0 launches,
      hist_cost > 0, split_search == searches > 0, autotype_cost 0, no
      verify
-     fallback, no host greedy parse, and the batch's bytes within 2% of
-     the native engine's.  The fused loop's K1 inputs at the most lane
-     groups of the batch are kept from the first run, and K1 and K2 are
-     held bit-equal to their plain versions on them and timed.
+     fallback, no host greedy parse, eight probe trials and one winner
+     handed on an image in every run (`optimize.PROBE`, with the probe
+     pool's width), and the batch's bytes within 2% of the native
+     engine's.  The fused loop's K1 inputs at the most lane groups of
+     the batch are kept from the first run, and K1 and K2 are held
+     bit-equal to their plain versions on them and timed.
   7. cli: `zopfli_tpu_torch.cli.main(["--i15", file])` in process on
      phase 3's input (bytes equal to phase 3's compress, launches as in
      phase 3), `python3 -m zopfli_tpu_torch.cli -c --i15 file` in a fresh
@@ -1671,7 +1673,7 @@ def phase_png(inputs, dev="cuda") -> tuple[dict, dict]:
     import torch
 
     from zopfli_tpu_torch.png import PNGOptions, codec
-    from zopfli_tpu_torch.png.optimize import optimize_many
+    from zopfli_tpu_torch.png.optimize import PROBE, optimize_many
 
     import zopfli_tpu_torch as zt
 
@@ -1706,6 +1708,8 @@ def phase_png(inputs, dev="cuda") -> tuple[dict, dict]:
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
         _reset_counters()
+        for k in ("trials", "line_jobs", "reused"):
+            PROBE[k] = 0
         greedy_calls, restore = _counted_greedy()
         kept, restore_k12 = _capture_fused_k1k2()
         calls.clear()
@@ -1726,6 +1730,7 @@ def phase_png(inputs, dev="cuda") -> tuple[dict, dict]:
         runs[label] = {"seconds": secs, "compress_many": dict(calls),
                        "bytes": sum(map(len, out)),
                        "greedy_calls": greedy_calls[0], **_counters(),
+                       "probe": dict(PROBE),
                        "pixels_equal": all(
                            (codec.decode(o)[0] == w).all()
                            for o, w in zip(out, want))}
@@ -1746,6 +1751,9 @@ def phase_png(inputs, dev="cuda") -> tuple[dict, dict]:
     dev_runs = [runs["device_cold"], runs["device_warm"]]
     ratio = runs["device_cold"]["bytes"] / runs["native"]["bytes"]
     ok = (all(r["pixels_equal"] for r in runs.values())
+          and all(r["probe"]["trials"] == 8 * len(pngs)
+                  and r["probe"]["reused"] == len(pngs)
+                  and r["probe"]["workers"] >= 1 for r in runs.values())
           and all(r["launches"]["scan"] == r["launches"]["traceback"] > 0
                   and r["launches"]["hist_cost"] > 0
                   and r["launches"]["split_search"]

@@ -9,6 +9,10 @@ tests/test_torch_devseed_many.py runs it)."""
 
 import importlib
 import io
+import os
+import sys
+import threading
+import time
 import zlib
 
 import numpy as np
@@ -324,6 +328,156 @@ def test_optimize_many_photos_identical(engine, shapes, monkeypatch):
     assert ours == ref
     for png, out in zip(pngs, ours):
         assert np.array_equal(codec.decode(out)[0], codec.decode(png)[0])
+
+
+def _bruteforce_one_loop(cand):
+    """Brute force's filter types in one loop over every line: the
+    smallest zlib level 6 size of the filter byte and the line, the
+    lower filter on ties."""
+    h = cand.shape[1]
+    ftypes = np.zeros(h, dtype=np.int64)
+    for y in range(h):
+        best = None
+        for f in range(5):
+            size = len(zlib.compress(bytes([f]) + cand[f, y].tobytes(), 6))
+            if best is None or size < best:
+                best = size
+                ftypes[y] = f
+    return ftypes
+
+
+def _serial_probe(cand):
+    """The automatic strategy as one loop over the probe order: each
+    strategy's filter types, stream and zlib level 6 size in turn, the
+    earliest of equal sizes kept.  Returns (name, ftypes, stream,
+    sizes)."""
+    fixed = ("zero", "one", "two", "three", "four")
+    best, sizes = None, {}
+    for name in opt.PROBE_ORDER:
+        if name == "minsum":
+            ftypes = filters.strategy_minsum(cand)
+        elif name == "entropy":
+            ftypes = filters.strategy_entropy(cand)
+        elif name == "bruteforce":
+            ftypes = _bruteforce_one_loop(cand)
+        else:
+            ftypes = np.full(cand.shape[1], fixed.index(name), np.int64)
+        raw = filters.serialize(cand, ftypes)
+        sizes[name] = len(zlib.compress(raw, 6))
+        if best is None or sizes[name] < best[0]:
+            best = (sizes[name], name, ftypes, raw)
+    return (*best[1:], sizes)
+
+
+def _candidates(png):
+    """The five filtered versions of an 8-bit image's lines, as
+    `_prepare` makes them."""
+    rgba, _ = codec.decode(png)
+    ct, bd, _, _, pal_index = opt.choose_color_encoding(rgba)
+    scan = opt._pack_scanlines(rgba, ct, bd, pal_index)
+    return filters.filter_all_types(np.ascontiguousarray(scan),
+                                    codec._bpp_bytes(ct, bd))
+
+
+def _tie_png():
+    """One grey line of a ramp: Sub and Paeth filter it alike (Paeth
+    reads the left byte where there is no line above), so `one` and
+    `four` deflate to the same size, and that size is the least."""
+    ramp = np.arange(64, dtype=np.uint8) * 3
+    return _raw_png(b"\x00" + ramp.tobytes(), 64, 1, 8, 0)
+
+
+@pytest.mark.parametrize("case", ["photo_72x40", "photo_40x72", "tie"])
+def test_probe_picks_what_the_serial_probe_picks(case, monkeypatch):
+    """`_prepare`'s automatic strategy, its trials on the pool finishing
+    in about the reverse of the probe order, hands on the strategy,
+    filter types and stream that the one-loop probe picks: on photos
+    from the benchmark's PNG kind, and on an image where two strategies
+    tie, which the earlier one wins."""
+    png = (_tie_png() if case == "tie"
+           else _photos([tuple(map(int, case[6:].split("x")))])[0])
+    cand = _candidates(png)
+    name, ftypes, raw, sizes = _serial_probe(cand)
+    if case == "tie":
+        least = [n for n in opt.PROBE_ORDER if sizes[n] == min(sizes.values())]
+        assert least[:2] == ["one", "four"] and name == "one"
+
+    trial = opt._trial
+
+    def late_if_early(name, *a):
+        time.sleep(0.004 * (len(opt.PROBE_ORDER)
+                            - opt.PROBE_ORDER.index(name)))
+        return trial(name, *a)
+    monkeypatch.setattr(opt, "_trial", late_if_early)
+    before = dict(opt.PROBE)
+    p = opt._prepare(png, opt.PNGOptions(engine="native"))
+    assert p.strategies == [name]
+    assert len(p.ftypes) == len(p.raws) == 1
+    assert np.array_equal(p.ftypes[0], ftypes)
+    assert p.raws[0] == raw
+    h = cand.shape[1]
+    assert {k: opt.PROBE[k] - before[k] for k in before if k != "workers"} \
+        == {"trials": 8, "reused": 1, "line_jobs": -(-h // opt.LINES_PER_JOB)}
+    assert opt.PROBE["workers"] == min(8, len(os.sched_getaffinity(0)))
+
+
+@pytest.mark.parametrize("bpp", [1, 3, 4])
+@pytest.mark.parametrize("lines", ["one", "range_less_one", "range_plus_one"])
+def test_bruteforce_line_split_equals_one_loop(bpp, lines, monkeypatch):
+    """Brute force's line ranges on the pool, joined in line order for
+    its whole-stream trial, give the one-loop filter types on heights
+    that are not a multiple of the range."""
+    h = {"one": 1, "range_less_one": opt.LINES_PER_JOB - 1,
+         "range_plus_one": opt.LINES_PER_JOB + 1}[lines]
+    rng = np.random.default_rng([bpp, h])
+    # Smooth rows with noise, so that different filters win lines.
+    img = np.cumsum(rng.integers(-3, 4, (h, bpp * 13)), axis=1)
+    img = (img + rng.integers(0, 2, (h, 1)) * np.arange(h)[:, None]
+           ).astype(np.uint8)
+    cand = filters.filter_all_types(img, bpp)
+    trial, joined = opt._trial, []
+
+    def keep_bruteforce(name, cand, ftypes=None):
+        if name == "bruteforce":
+            joined.append(ftypes)
+        return trial(name, cand, ftypes)
+    monkeypatch.setattr(opt, "_trial", keep_bruteforce)
+    before = opt.PROBE["line_jobs"]
+    opt._probe(cand)
+    assert opt.PROBE["line_jobs"] - before == -(-h // opt.LINES_PER_JOB)
+    assert len(joined) == 1
+    assert np.array_equal(joined[0], _bruteforce_one_loop(cand))
+
+
+def test_probes_from_many_threads_count_every_trial():
+    """Twice as many threads as cores run `_prepare` at once on small
+    photos through the one pool, the interpreter switching threads
+    often: each hands on the bytes one thread alone gets, and the
+    probe's counters lose no bump."""
+    pngs = _photos([(12, 20), (20, 12)])
+    opts = opt.PNGOptions(engine="native")
+    want = [opt._prepare(png, opts).raws for png in pngs]
+    n = 2 * len(os.sched_getaffinity(0))
+    got = [None] * n
+
+    def run(i):
+        got[i] = opt._prepare(pngs[i % 2], opts).raws
+
+    before = dict(opt.PROBE)
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert got == [want[i % 2] for i in range(n)]
+    assert opt.PROBE["trials"] - before["trials"] == 8 * n
+    assert opt.PROBE["reused"] - before["reused"] == n
 
 
 def test_default_options_run_on_cuda_and_never_fall_back():

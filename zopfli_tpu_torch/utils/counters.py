@@ -3,14 +3,15 @@
 The counters themselves stay plain module-level dicts and one-element
 lists (scan_kernel.LAUNCHES, devsplit.STATS, seed.PROGRAMS,
 engine.FALLBACKS, fused_engine.FETCH_RETRIES,
-squeeze_batched.VERIFY_FAILS, emit.PACKED), so their readers index them
-as before.  emit.PACKED counts the bits that each BitStream pack wrote
-with the native payload pass ("payload_bits") and as header and tree
-fields ("field_bits").
+squeeze_batched.VERIFY_FAILS, emit.PACKED, png.optimize.PROBE), so
+their readers index them as before.  emit.PACKED counts the bits that
+each BitStream pack wrote with the native payload pass ("payload_bits")
+and as header and tree fields ("field_bits").
 `counter[key] += n` is a read-modify-write that the interpreter lock does
 not make atomic: masters on worker threads (deflate.deflate with
-Options.workers != 1) bump the same counter at once, and every bump goes
-through one lock here.
+Options.workers != 1), and the PNG probe's trials on its thread pool,
+bump the same counter at once, and every bump goes through one lock
+here.
 
 The work done twice that FETCH_RETRIES and VERIFY_FAILS count also runs
 under spans of its own, [zt.fetch_retry] and [zt.verify_fallback]
