@@ -55,7 +55,7 @@ Phases, each printed as one JSON line:
      two splits, one pull each; each equal to the plain search on CPU
      copies of its stream) and autotype_cost never, call no host greedy
      parse, fall back to the host engine for no block, and stay within
-     2% of the native engine's size.  One warm ZT_SEED=greedy run is timed beside it.
+     2% of the native engine's size.
   mega: ZT_MEGA=1 at 1 MiB (G=1, nb_pad 64) and 2 MiB at
      ZT_MASTER_SIZE=2097152 (MB 32, G=2, nb_pad 128), each beside the
      default two-phase path in turns: bytes equal, zlib round trip, no
@@ -1283,17 +1283,17 @@ def _compress_run(raw: bytes, label: str, dev) -> tuple[dict, bytes]:
     return run, out
 
 
-def _launches_ok(r, seeds) -> bool:
-    """K1/K2 once per iteration and per seed program, K3 `hist_cost` at
-    least once; the splits: one `split_search` launch a search, two on
-    one master (the first split and the second), rounds read from their
-    states, one pull a search (and the seed's symbol count), no
-    `autotype_cost` launch (no host-controlled round)."""
+def _launches_ok(r) -> bool:
+    """K1/K2 once per iteration and once for the seed program, K3
+    `hist_cost` at least once; the splits: one `split_search` launch a
+    search, two on one master (the first split and the second), rounds
+    read from their states, one pull a search (and the seed's symbol
+    count), no `autotype_cost` launch (no host-controlled round)."""
     ln, sp = r["launches"], r["split"]
-    return (ln["scan"] == ln["traceback"] == ITERATIONS + seeds
+    return (ln["scan"] == ln["traceback"] == ITERATIONS + 1
             and ln["hist_cost"] > 0
             and ln["split_search"] == sp["searches"] == 2
-            and sp["rounds"] > 0 and sp["syncs"] == 2 + seeds
+            and sp["rounds"] > 0 and sp["syncs"] == 3
             and ln["autotype_cost"] == 0)
 
 
@@ -1301,7 +1301,7 @@ def _default_path_ok(r) -> bool:
     """One compress of one master on the default path: one seed program,
     no host greedy parse, no verify fallback."""
     return (r["verify_fails"] == 0 and r["greedy_calls"] == 0
-            and r["seed_programs"] == 1 and _launches_ok(r, 1))
+            and r["seed_programs"] == 1 and _launches_ok(r))
 
 
 def _counted_greedy():
@@ -1355,8 +1355,8 @@ def _searches_vs_plain(calls) -> list[bool]:
 
 
 def phase_main(data, dev="cuda"):
-    """compress() on the card at the defaults, and one greedy-seeded
-    run: round trip, launches, greedy calls, fallbacks, size."""
+    """compress() on the card at the defaults: round trip, launches,
+    greedy calls, fallbacks, size."""
     import torch
 
     import zopfli_tpu_torch as zt
@@ -1374,15 +1374,6 @@ def phase_main(data, dev="cuda"):
     # The warm run's two searches (the seed's split and the second split)
     # against the plain search on CPU copies of their streams.
     searches_vs_plain = _searches_vs_plain(calls)
-    old = os.environ.get("ZT_SEED")
-    os.environ["ZT_SEED"] = "greedy"
-    try:
-        greedy_run, greedy_out = _compress_run(raw, "greedy_warm", dev)
-    finally:
-        if old is None:
-            del os.environ["ZT_SEED"]
-        else:
-            os.environ["ZT_SEED"] = old
     t0 = time.time()
     native_out = zt.compress(raw, "gzip", zt.Options(
         engine="native", numiterations=ITERATIONS))
@@ -1390,23 +1381,17 @@ def phase_main(data, dev="cuda"):
     ratio = len(outs[0]) / len(native_out)
 
     ok = (all(r["roundtrip"] and _default_path_ok(r) for r in runs)
-          and greedy_run["roundtrip"] and greedy_run["verify_fails"] == 0
-          and _launches_ok(greedy_run, 0)
           and outs[1] == outs[0] and ratio <= 1.02
           and len(searches_vs_plain) == 2 and all(searches_vs_plain)
-          and len(greedy_out) / len(native_out) <= 1.02
           and zlib.decompress(native_out, 31) == raw)
     emit({"phase": "main", "ok": ok, "input_bytes": len(raw),
           "input_crc32": zlib.crc32(raw),
-          "iterations": ITERATIONS, "runs": runs + [greedy_run],
+          "iterations": ITERATIONS, "runs": runs,
           "cold_seconds": runs[0]["seconds"],
           "warm_seconds": runs[1]["seconds"],
-          "greedy_warm_seconds": greedy_run["seconds"],
           "output_bytes": len(outs[0]), "native_bytes": len(native_out),
-          "greedy_bytes": len(greedy_out),
           "searches_vs_plain": searches_vs_plain,
           "native_seconds": native_secs, "size_vs_native": ratio,
-          "greedy_size_vs_native": len(greedy_out) / len(native_out),
           "fetch_retries": runs[0]["fetch_retries"],
           "peak_mem_bytes": torch.cuda.max_memory_allocated()})
     if not ok:

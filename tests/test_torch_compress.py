@@ -1,15 +1,14 @@
-"""The port's greedy-seeded path against the JAX package's, end to end.
+"""The port's default path against the JAX package's, end to end, on the
+empty input, one text master, a multi-block master and 16 KiB masters.
 
-Reference: zopfli_tpu.compress(..., Options(engine="tpu")) with the
-greedy-seeded front end (ZT_SEED=greedy) on one device (the conftest's 8
-virtual devices would otherwise round the group count up to 8 and
-change the replica fill).  Both packages run their first split on the
-host splitter (ZT_DEVICE_SPLIT=0) and their second split on the device
-splitter (tests/test_blocks.py and tests/test_torch_devsplit.py hold
-the splitters equal).  The port: zopfli_tpu_torch.compress on the CPU
-with the same settings.  gzip, zlib and raw deflate bytes must be
-identical.  The port's default, device-seeded path is held by
-tests/test_torch_devseed.py."""
+Reference: zopfli_tpu.compress(..., Options(engine="tpu")) at its
+defaults (ZT_SEED unset: the device seed program, the device splits) on
+one device (_LOCAL_MESH pinned to [None]: the conftest's 8 virtual
+devices would otherwise round the group count up to 8 and change the
+replica fill).  The port: zopfli_tpu_torch.compress at its defaults on
+the CPU, through deflate.deflate_device.  gzip, zlib and raw
+deflate bytes must be identical.  tests/test_torch_devseed.py and
+tests/test_torch_devseed_many.py hold the same path on other inputs."""
 
 import importlib
 import zlib
@@ -54,20 +53,23 @@ FORMATS = ("gzip", "zlib", "deflate")
 
 
 @pytest.fixture(autouse=True)
-def greedy_seed(monkeypatch):
-    """The port on the greedy-seeded path, first split on the host."""
-    monkeypatch.setenv("ZT_SEED", "greedy")
-    monkeypatch.setenv("ZT_DEVICE_SPLIT", "0")
+def defaults(monkeypatch):
+    """Both packages at their defaults."""
+    monkeypatch.delenv("ZT_SEED", raising=False)
+    monkeypatch.delenv("ZT_DEVICE_SPLIT", raising=False)
+    monkeypatch.delenv("ZT_MEGA", raising=False)
 
 
 @pytest.fixture(scope="module")
 def reference():
-    """Raw DEFLATE payload of every case from the JAX package."""
+    """Raw DEFLATE payload of every case from the JAX package, on one
+    device."""
     ref_deflate = importlib.import_module("zopfli_tpu.deflate")
     payloads = {}
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("ZT_SEED", "greedy")
-        mp.setenv("ZT_DEVICE_SPLIT", "0")
+        mp.delenv("ZT_SEED", raising=False)
+        mp.delenv("ZT_DEVICE_SPLIT", raising=False)
+        mp.delenv("ZT_MEGA", raising=False)
         mp.setattr(ref_deflate, "_LOCAL_MESH", [None])
         for name, (data, master) in CASES.items():
             if master:
@@ -109,7 +111,7 @@ def _ours(name: str, fmt: str, monkeypatch) -> bytes:
 
 def test_cases_cover_blocks_and_masters():
     data = np.frombuffer(CASES["multiblock"][0], np.uint8)
-    assert len(split_master(Options(), data, 0, len(data),
+    assert len(split_master(Options(engine="native"), data, 0, len(data),
                             native.greedy)) > 2
     assert len(CASES["multimaster"][0]) > MASTER
 

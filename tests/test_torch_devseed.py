@@ -101,6 +101,19 @@ def test_default_bytes_identical_to_reference(name, fmt, no_greedy):
     assert got == _expected(name, fmt, _reference(name))
 
 
+@pytest.mark.parametrize("knob,value", [("ZT_SEED", "greedy"),
+                                        ("ZT_DEVICE_SPLIT", "0")])
+def test_seed_settings_leave_the_default_path(knob, value, no_greedy,
+                                              monkeypatch):
+    """ZT_SEED and ZT_DEVICE_SPLIT, which the JAX package reads, change
+    nothing in the port: deflate.deflate_device is its one device route,
+    and it runs no host greedy parse."""
+    want = _expected("multiblock", "gzip", _reference("multiblock"))
+    monkeypatch.setenv(knob, value)
+    assert zt.compress(CASES["multiblock"], "gzip", zt.Options(
+        device="cpu", numiterations=ITERATIONS)) == want
+
+
 def test_cases_reach_blocks_and_stored_exit():
     from zopfli_tpu_torch.ops import seed
 

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from zopfli_tpu.parallel import dist as jdist
+from zopfli_tpu_torch.ops import hashmatch
 from zopfli_tpu_torch.parallel import dist
 
 # The tensors here are tiny: one intra-op thread per test process keeps
@@ -52,7 +53,7 @@ def test_pack_blocks_equals_jax(blocks):
         assert w.dtype == g.dtype
         np.testing.assert_array_equal(g, w)
     assert dist.total_row_len(CAP) == jdist.total_row_len(CAP)
-    np.testing.assert_array_equal(dist.hashmatch_filler(5000),
+    np.testing.assert_array_equal(hashmatch._filler(5000),
                                   jdist.hashmatch_filler(5000))
     with pytest.raises(ValueError):
         dist.pack_blocks(data, [(0, CAP + 1)], CAP)
@@ -112,7 +113,8 @@ def test_sharded_fused_loop_equals_jax_mesh_and_unsharded():
     from zopfli_tpu.squeeze_batched import lz77_optimal_fused as jfused
     from zopfli_tpu_torch import native
     from zopfli_tpu_torch.ops import fused_engine
-    from zopfli_tpu_torch.squeeze_batched import lz77_optimal_fused
+    from zopfli_tpu_torch.squeeze_batched import (fused_collect,
+                                                  greedy_seed_stats)
 
     if len(jax.devices()) < 8:
         pytest.skip("the JAX reference needs its 8-device virtual mesh")
@@ -124,13 +126,16 @@ def test_sharded_fused_loop_equals_jax_mesh_and_unsharded():
     want = jfused(arr, spec_m, 4, default_greedy(jopts),
                   mesh=jdist.make_mesh(8))[0]
 
+    def fused(fs):
+        seed_ll, seed_d = greedy_seed_stats(arr, fs.block_bounds,
+                                            native.greedy)
+        return fused_collect(fs, fs.dispatch(seed_ll, seed_d, 4), 4)[0]
+
     fs = fused_engine.FusedSqueeze(arr, spec_m, device="cpu", devices=CPU8)
     assert fs.ngroups % 8 == 0 and len(fs.shards) == 8
     assert all(sh.groups == fs.ngroups // 8 for sh in fs.shards)
-    sharded = lz77_optimal_fused(arr, spec_m, 4, native.greedy,
-                                 device="cpu", devices=CPU8)[0]
-    single = lz77_optimal_fused(arr, spec_m, 4, native.greedy,
-                                device="cpu")[0]
+    sharded = fused(fs)
+    single = fused(fused_engine.FusedSqueeze(arr, spec_m, device="cpu"))
     assert len(want) == len(sharded) == len(single) == len(bounds) - 1
     for w, a, b in zip(want, sharded, single):
         np.testing.assert_array_equal(a.litlens, w.litlens)

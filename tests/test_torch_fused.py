@@ -16,6 +16,7 @@ from zopfli_tpu.ops import hashmatch as jhm
 from zopfli_tpu_torch import native
 from zopfli_tpu_torch.deflate import Options, split_master
 from zopfli_tpu_torch.ops import fused_engine as fe
+from zopfli_tpu_torch.ops import hashmatch as hm
 from zopfli_tpu_torch.squeeze_batched import greedy_seed_stats
 
 # The tensors here are tiny: one intra-op thread per test process keeps
@@ -38,7 +39,7 @@ def _input() -> np.ndarray:
 def _jax_candidates(data: np.ndarray, cap: int):
     L = len(data)
     buf = np.zeros(jhm.PREFIX + cap + 264, np.uint8)
-    buf[:jhm.PREFIX] = fe._filler(jhm.PREFIX)
+    buf[:jhm.PREFIX] = hm._filler(jhm.PREFIX)
     buf[jhm.PREFIX:jhm.PREFIX + L] = data
     bl, bd, _ = jhm.build_candidates(
         jnp.asarray(buf), cap, jnp.int32(jhm.PREFIX),

@@ -7,7 +7,6 @@ import pytest
 import torch
 
 from zopfli_tpu.ops import hashmatch as jhm
-from zopfli_tpu_torch.ops import fused_engine
 from zopfli_tpu_torch.ops import hashmatch as hm
 
 # The tensors here are tiny: one intra-op thread per test process keeps
@@ -37,7 +36,7 @@ CASES = {
 def _padded(data: bytes, prefix_len: int) -> np.ndarray:
     L = len(data) - prefix_len
     buf = np.zeros(hm.PREFIX + CAP + 264, np.uint8)
-    buf[:hm.PREFIX] = fused_engine._filler(hm.PREFIX)
+    buf[:hm.PREFIX] = hm._filler(hm.PREFIX)
     buf[hm.PREFIX - prefix_len:hm.PREFIX + L] = np.frombuffer(data, np.uint8)
     return buf
 

@@ -107,10 +107,11 @@ def test_forced_btype_workers_equal_jax(btype, workers, device_masters):
 
 def test_device_btype2_masters_take_fused_loop(device_masters, monkeypatch):
     """btype 2 on the device engine over several masters goes to the
-    fused loop whatever workers says; the threads are not reached."""
+    fused loop (deflate_device) whatever workers says; the threads are
+    not reached."""
     calls = []
-    monkeypatch.setattr(tdeflate, "_deflate_fused_masters",
-                        lambda options, data, masters, *a: calls.append(
+    monkeypatch.setattr(tdeflate, "deflate_device",
+                        lambda options, data, masters, *a, **k: calls.append(
                             (options.workers, masters)))
     _port(zt.Options(engine="device", device="cpu", workers=4), 2,
           THREE_MASTERS)

@@ -5,12 +5,14 @@ master blocks processed with the previous bytes visible as LZ77
 dictionary, two-phase block splitting, per-block btype choice with the
 optional fixed-tree re-parse, and the empty-block / stored-block rules.
 
-Two parse engines: "device" -- the device seed program (ops.seed: a
-fixed-cost parse and the first split) and the fused squeeze
-(ops.fused_engine) on Options.device, the second split on the device
-(ops.devsplit) -- and "native", the C++ host engine.  ZT_SEED=greedy
-keeps the greedy-seeded device path: the host greedy parse seeds the
-stats and feeds the first split.
+Two parse engines.  "device" has one route at btype 2, deflate_device,
+for compress and compress_many alike: masters in chunks, each chunk
+through the seed pipeline (squeeze_batched: the device seed program
+ops.seed -- a fixed-cost parse and the first split -- then the fused
+squeeze ops.fused_engine on Options.device), then emit_results and
+finish_part (the second split on the device, ops.devsplit, and the
+bitstream).  "native" is the C++ host engine, master by master through
+deflate_part.
 """
 
 from __future__ import annotations
@@ -45,7 +47,9 @@ class Options:
     engine: str = "device"
     tracer: Optional[Tracer] = None
     # Master blocks compress in parallel across host threads (and local
-    # CUDA devices) where the fused loop does not take them all; 0 = auto.
+    # CUDA devices) for the native engine and for forced btype 0 and 1;
+    # the device engine at btype 2 runs all masters through one fused
+    # pipeline and ignores it.  0 = auto.
     workers: int = 1
     # Torch device of the "device" engine: "cuda" (default) or "cpu".
     device: str = "cuda"
@@ -201,12 +205,6 @@ def add_lz77_block_auto_type(options: Options, final: bool, store: LZ77Store,
         add_lz77_block(options, 2, final, store, lstart, lend, out)
 
 
-def _use_devseed() -> bool:
-    """The device engine seeds and splits on the device by default
-    (ZT_SEED=greedy restores the host-greedy seed for A/B comparison)."""
-    return os.environ.get("ZT_SEED", "device") == "device"
-
-
 def tpu_master_size() -> int:
     """Master-block size of the device engine (bytes, ZT_MASTER_SIZE).
 
@@ -240,42 +238,25 @@ def _devseed_trace(tracer, entry):
 
 def split_master(options: Options, data: np.ndarray, instart: int,
                  inend: int, greedy_fn) -> list[int]:
-    """Block-split of one master's greedy parse -> bounds incl. endpoints.
-
-    The device engine runs the split search on the device (ops.devsplit,
-    an exact reproduction of ZopfliBlockSplitLZ77); the native engine
-    uses the host splitter.  ZT_DEVICE_SPLIT=0/1 overrides.
-    """
+    """Host block-split of one master's greedy parse -> bounds incl.
+    endpoints (the native engine's first split)."""
     if not options.blocksplitting or inend <= instart:
         return [instart, inend]
     maxblocks = scaled_maxblocks(options, inend - instart)
-    use_dev = os.environ.get("ZT_DEVICE_SPLIT")
-    if use_dev is None:
-        use_dev = "1" if options.engine == "device" else "0"
     with span("zt.split"):
-        if use_dev == "1":
-            from .ops.devsplit import block_split_lz77_device
-
-            litlens, dists = greedy_fn(data, instart, inend)
-            store = LZ77Store(data, litlens, dists, instart)
-            lz77_points = block_split_lz77_device(
-                litlens.astype(np.int32), dists.astype(np.int32), maxblocks,
-                device=resolve_device(options))
-            pts = [int(store.pos[p]) for p in lz77_points]
-        else:
-            pts = blocks.block_split(data, instart, inend, maxblocks,
-                                     greedy_fn)
+        pts = blocks.block_split(data, instart, inend, maxblocks, greedy_fn)
     return [instart] + pts + [inend]
 
 
 def deflate_part(options: Options, btype: int, final: bool, data: np.ndarray,
                  instart: int, inend: int, out: BitStream,
                  engine_factory=None, greedy_fn=None) -> None:
-    """Compress one master block (deflate.c:811-906)."""
-    engine_factory = engine_factory or default_engine_factory(options)
-    greedy_fn = greedy_fn or default_greedy(options)
-    tracer = options.tracer
+    """Compress one master block (deflate.c:811-906).
 
+    The device engine at btype 2 hands the master to deflate_device as a
+    chunk of one.
+    """
+    engine_factory = engine_factory or default_engine_factory(options)
     if btype == 0:
         add_non_compressed_block(final, data, instart, inend, out)
         return
@@ -286,50 +267,27 @@ def deflate_part(options: Options, btype: int, final: bool, data: np.ndarray,
         if hasattr(engine, "close"):
             engine.close()
         return
-
-    if options.engine == "device" and inend > instart and _use_devseed():
-        from .squeeze_batched import devseed_collect, devseed_dispatch
-        entry = devseed_dispatch(data, [(instart, inend)],
-                                 options.numiterations,
-                                 scaled_maxblocks(options, inend - instart),
-                                 device=resolve_device(options),
-                                 devices=local_devices(options))
-        results = devseed_collect(entry, options.numiterations,
-                                  trace=_devseed_trace(tracer, entry))
-        emit_results(options, data, [(instart, inend, final)], results,
-                     lambda i: out, lambda i: engine_factory)
+    if options.engine == "device":
+        deflate_device(options, data, [(instart, inend, final)],
+                       lambda m: out, lambda m: engine_factory)
         return
 
+    greedy_fn = greedy_fn or default_greedy(options)
+    tracer = options.tracer
     bounds = split_master(options, data, instart, inend, greedy_fn)
-    if options.engine == "device":
-        from .squeeze_batched import lz77_optimal_fused
+    stores = []
+    for i in range(len(bounds) - 1):
+        start, end = bounds[i], bounds[i + 1]
+        engine = engine_factory(data, start, end)
         trace = None
         if tracer is not None:
-            hooks = [tracer.block_iteration_hook(bounds[i], bounds[i + 1])
-                     for i in range(len(bounds) - 1)]
-            trace = lambda b, i, cost: hooks[b](i, cost)
-        if inend > instart:
-            stores = lz77_optimal_fused(
-                data, [(instart, inend, bounds)], options.numiterations,
-                greedy_fn, device=resolve_device(options), trace=trace,
-                devices=local_devices(options))[0]
-        else:
-            stores = [LZ77Store(data, np.zeros(0, np.uint16),
-                                np.zeros(0, np.uint16), instart)]
-    else:
-        stores = []
-        for i in range(len(bounds) - 1):
-            start, end = bounds[i], bounds[i + 1]
-            engine = engine_factory(data, start, end)
-            trace = None
-            if tracer is not None:
-                trace = tracer.block_iteration_hook(start, end)
-            st = squeeze.lz77_optimal(engine, data, start, end,
-                                      options.numiterations, greedy_fn,
-                                      trace=trace)
-            if hasattr(engine, "close"):
-                engine.close()
-            stores.append(st)
+            trace = tracer.block_iteration_hook(start, end)
+        st = squeeze.lz77_optimal(engine, data, start, end,
+                                  options.numiterations, greedy_fn,
+                                  trace=trace)
+        if hasattr(engine, "close"):
+            engine.close()
+        stores.append(st)
 
     finish_part(options, final, stores, out, engine_factory)
 
@@ -459,11 +417,11 @@ def deflate(options: Options, btype: int, final: bool, data: np.ndarray,
     """Full DEFLATE stream over master blocks (deflate.c:908-931).
 
     Master blocks are mutually independent here (each sees the previous
-    bytes only as its LZ77 window halo).  With the device engine at
-    btype 2, all masters' tiles share the fused loop's lane groups;
-    otherwise, with options.workers != 1, they compress on host threads
-    (on a host with several CUDA devices, master i on local_devices()[i
-    % n]) and their bitstreams are spliced in order.
+    bytes only as its LZ77 window halo).  The device engine at btype 2
+    takes them all to deflate_device; otherwise, with options.workers !=
+    1, they compress on host threads (on a host with several CUDA
+    devices, master i on local_devices()[i % n]) and their bitstreams
+    are spliced in order.
     """
     if options.engine not in ENGINES:
         raise ValueError(f"unknown engine {options.engine!r}; expected one "
@@ -485,11 +443,10 @@ def deflate(options: Options, btype: int, final: bool, data: np.ndarray,
         if i >= insize:
             break
 
-    if options.engine == "device" and btype == 2 and len(masters) > 1:
-        _deflate_fused_masters(options, data, masters, out,
-                               engine_factory or
-                               default_engine_factory(options),
-                               greedy_fn or default_greedy(options))
+    if options.engine == "device" and btype == 2:
+        factory = engine_factory or default_engine_factory(options)
+        deflate_device(options, data, masters, lambda m: out,
+                       lambda m: factory)
         return
 
     workers = options.workers
@@ -529,46 +486,30 @@ def deflate(options: Options, btype: int, final: bool, data: np.ndarray,
         out.extend(part)
 
 
-def _deflate_fused_masters(options: Options, data: np.ndarray, masters,
-                           out: BitStream, engine_factory,
-                           greedy_fn) -> None:
-    """All masters' tiles share the fused device loop, in chunks.
+def deflate_device(options: Options, data: np.ndarray, masters, out_for,
+                   factory_for, window_start=lambda m: 0) -> None:
+    """The device engine at btype 2: compress's masters, compress_many's,
+    and each master deflate_part is handed.
 
-    Masters are chunked by estimated tile count (ZT_TILE_BUDGET) so
-    chunks fill the bucketed lane-group geometry; the free lanes, and so
-    the replicas, depend on this chunking.  While the device runs chunk
-    N, the host emits chunk N-1.
+    masters: [(start, end, final, ...)]; out_for(m), factory_for(m) and
+    window_start(m): a master's BitStream, engine factory and first
+    window byte.  Masters go through the seed pipeline in chunks
+    (_chunk_masters); the free lanes, and so the replicas, depend on
+    this chunking.  An empty master (an empty input) is one empty store.
     """
-    from .squeeze_batched import fused_collect, fused_dispatch
-
     device = resolve_device(options)
-    devices = local_devices(options)
-    chunks = _chunk_masters(options, masters)
-    if _use_devseed():
-        _devseed_pipeline(options, data, chunks, lambda m: 0,
-                          lambda m: out, lambda m: engine_factory, device,
-                          devices)
-        return
-
-    pending = None  # (chunk, fs, handle)
-
-    def emit(entry):
-        chunk, fs, handle = entry
-        all_stores = fused_collect(fs, handle, options.numiterations)
-        for (start, end, fin), stores in zip(chunk, all_stores):
-            finish_part(options, fin, stores, out, engine_factory)
-
-    for chunk in chunks:
-        specs = [(start, end,
-                  split_master(options, data, start, end, greedy_fn))
-                 for (start, end, _fin) in chunk]
-        fs, handle = fused_dispatch(data, specs, options.numiterations,
-                                    greedy_fn, device=device,
-                                    devices=devices)
-        if pending is not None:
-            emit(pending)
-        pending = (chunk, fs, handle)
-    emit(pending)
+    live = []
+    for m in masters:
+        if m[1] > m[0]:
+            live.append(m)
+            continue
+        empty = np.zeros(0, np.uint16)
+        finish_part(options, m[2], [LZ77Store(data, empty, empty, m[0])],
+                    out_for(m), factory_for(m))
+    if live:
+        _devseed_pipeline(options, data, _chunk_masters(options, live),
+                          window_start, out_for, factory_for, device,
+                          local_devices(options))
 
 
 def _chunk_masters(options: Options, masters) -> list[list]:
@@ -594,7 +535,7 @@ def _chunk_masters(options: Options, masters) -> list[list]:
 
 
 def _devseed_pipeline(options: Options, data, chunks, window_start,
-                      out_for, factory_for, device, devices=None) -> None:
+                      out_for, factory_for, device, devices) -> None:
     """Software pipeline over chunks of masters: queue chunk N's seed
     parses, emit chunk N-1 (host) while the device runs them, then
     finish chunk N's seeds and queue its squeeze.
@@ -643,7 +584,6 @@ def deflate_many(options: Options, data: np.ndarray, blob_ranges,
     sequential per-file loop, zopfli_bin.c:191-211), with the LZ77 window
     clamped at each input's start.
     """
-    device = resolve_device(options)
     engine_factory = default_engine_factory(options)
     msize = tpu_master_size()
     masters = []            # (start, end, final, blob_idx)
@@ -666,7 +606,6 @@ def deflate_many(options: Options, data: np.ndarray, blob_ranges,
             return engine_factory
         return lambda d, s, e: engine_factory(d[bs:], s - bs, e - bs)
 
-    _devseed_pipeline(options, data, _chunk_masters(options, masters),
-                      lambda m: blob_start[m[3]], lambda m: outs[m[3]],
-                      lambda m: blob_factory(m[3]), device,
-                      local_devices(options))
+    deflate_device(options, data, masters, lambda m: outs[m[3]],
+                   lambda m: blob_factory(m[3]),
+                   window_start=lambda m: blob_start[m[3]])

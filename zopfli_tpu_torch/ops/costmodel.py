@@ -318,6 +318,14 @@ def tree_size(ll_lengths: torch.Tensor,
 # Symbol payload size + full dynamic cost.
 # ---------------------------------------------------------------------------
 
+def dist_symbol(dist: torch.Tensor) -> torch.Tensor:
+    """DEFLATE distance symbol of distances >= 1 (exact integer ops)."""
+    d1 = torch.clamp(dist - 1, min=1)
+    lg = floor_log2(d1)
+    r = (d1 >> torch.clamp(lg - 1, min=0)) & 1
+    return torch.where(dist < 5, dist - 1, 2 * lg + r)
+
+
 _LL_EXTRA = np.zeros(spec.NUM_LL, dtype=np.int64)
 _LL_EXTRA[257:286] = spec.LENGTH_SYMBOL_EXTRA_BITS
 _D_EXTRA = np.zeros(spec.NUM_D, dtype=np.int64)

@@ -43,7 +43,7 @@ from .. import spec
 from ..utils.counters import bump
 from ..utils.logging import span
 from . import costmodel, scan_kernel
-from .fused_engine import dist_symbol
+from .costmodel import dist_symbol
 
 CKPT = 256           # symbols per cumulative-histogram checkpoint
 LINEAR_MAX = 1024    # FindMinimum linear-scan bound (blocksplitter.c:44)

@@ -22,7 +22,7 @@ import torch
 from .. import spec
 from ..utils.counters import bump
 from . import scan_kernel
-from .fused_engine import dist_symbol  # the reference's dist_symbol_jax
+from .costmodel import dist_symbol  # the reference's dist_symbol_jax
 
 BIG = scan_kernel.BIG
 W = 256          # match lengths 3..258

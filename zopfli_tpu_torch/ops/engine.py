@@ -22,19 +22,9 @@ import torch
 from .. import spec
 from ..utils.counters import bump
 from . import dp, hashmatch
-from .fused_engine import _filler
 
 # Diagnostic counter: native fallbacks after a failed byte verification.
 FALLBACKS = [0]
-
-
-def _bucket(n: int) -> int:
-    """Pad block lengths to powers of two >= 16 KiB (the JAX package's
-    buckets, so that both packages see the same padding)."""
-    cap = 16384
-    while cap < n:
-        cap *= 2
-    return cap
 
 
 def _fixed_cost_vectors():
@@ -78,23 +68,12 @@ class DeviceBlockEngine:
             return
         dev = self.device
         L = self.L
-        cap = _bucket(L)
-        prefix_len = min(self.instart, spec.WINDOW_SIZE)
-        total = hashmatch.PREFIX + cap + 264
-        buf = np.empty(total, dtype=np.uint8)
-        # Filler pattern for rows outside the valid prefix (rejected via
-        # min_pos, pattern only avoids degenerate equal-hash buckets).
-        buf[:hashmatch.PREFIX] = _filler(hashmatch.PREFIX)
-        if prefix_len:
-            buf[hashmatch.PREFIX - prefix_len : hashmatch.PREFIX] = \
-                self.data[self.instart - prefix_len : self.instart]
-        buf[hashmatch.PREFIX : hashmatch.PREFIX + L] = \
-            self.data[self.instart : self.inend]
-        buf[hashmatch.PREFIX + L :] = 0
-
+        # Padded to the JAX package's power-of-two buckets, so that both
+        # packages see the same padding.
+        buf, cap, min_pos, inend_real = hashmatch.padded_row(
+            self.data, self.instart, self.inend)
         bp_len, bp_dist, _ = hashmatch.build_candidates(
-            torch.from_numpy(buf).to(dev), cap,
-            hashmatch.PREFIX - prefix_len, hashmatch.PREFIX + L)
+            torch.from_numpy(buf).to(dev), cap, min_pos, inend_real)
         self._bp_len = bp_len.to(torch.int32)[None].contiguous()  # (1,cap,K)
         self._bp_dist = bp_dist.to(torch.int32)[None].contiguous()
         dsym = dp.dist_symbol(torch.clamp(self._bp_dist, min=1))

@@ -54,14 +54,6 @@ _DSYM_EXTRA[:30] = spec.DIST_SYM_EXTRA_BITS
 FETCH_RETRIES = [0]
 
 
-def dist_symbol(dist: torch.Tensor) -> torch.Tensor:
-    """DEFLATE distance symbol of distances >= 1 (exact integer ops)."""
-    d1 = torch.clamp(dist - 1, min=1)
-    lg = costmodel.floor_log2(d1)
-    r = (d1 >> torch.clamp(lg - 1, min=0)) & 1
-    return torch.where(dist < 5, dist - 1, 2 * lg + r)
-
-
 def prepare_group(bp_len, bp_dist, data_block, tile_start, tile_nbytes,
                   cap_total: int):
     """Slice combined candidate tables into one lane group's layout.
@@ -81,13 +73,9 @@ def prepare_group(bp_len, bp_dist, data_block, tile_start, tile_nbytes,
     bl = torch.where(bl >= spec.MIN_MATCH, bl, 0)
     valid = pos_in_tile[None, :] < tile_nbytes[:, None]
     bl = torch.where(valid[:, :, None], bl, 0)
-    dsym = dist_symbol(torch.clamp(bd, min=1))
+    dsym = costmodel.dist_symbol(torch.clamp(bd, min=1))
     return (bl.permute(1, 2, 0), bd.permute(1, 2, 0), dsym.permute(1, 2, 0),
             lit.permute(1, 0), valid.permute(1, 0))
-
-
-def _filler(n: int) -> np.ndarray:
-    return (np.arange(n, dtype=np.uint32) * 2654435761 >> 13).astype(np.uint8)
 
 
 class SqueezeLoop:
@@ -296,19 +284,16 @@ class SqueezeLoop:
 
     def compact(self, state, fetch_cap: int):
         """The end-of-loop compaction: each lane's sparse packed path rows
-        to the front (a stable sort by emptiness keeps rows
-        position-ordered), on each shard's device.  Returns (best_cost,
-        best_sll, best_sd, nsym (G, LANES), packed (G, fetch_cap, LANES),
-        best_pe): best_pe is also kept, a lane overflowing fetch_cap pulls
-        it instead."""
+        to the front (scan_kernel.compact_lanes), on each shard's device.
+        Returns (best_cost, best_sll, best_sd, nsym (G, LANES), packed
+        (G, fetch_cap, LANES), best_pe): best_pe is also kept, a lane
+        overflowing fetch_cap pulls it instead."""
         (_, _, best_cost, best_sll, best_sd, _, _, _, best_pe) = state
         nsym, packed = [], []
         with span("zt.squeeze.compact"):
             for bpe in best_pe:
-                empty = (bpe == 0).to(torch.int32)
-                order = torch.sort(empty, dim=1, stable=True).indices
-                pe_c = torch.gather(bpe, 1, order)
-                nsym.append((1 - empty).sum(dim=1).to(self.device))
+                n, pe_c = scan_kernel.compact_lanes(bpe)
+                nsym.append(n.to(self.device))
                 packed.append(pe_c[:, :fetch_cap, :].to(self.device))
             return (best_cost, best_sll, best_sd, torch.cat(nsym),
                     torch.cat(packed), best_pe)
@@ -361,10 +346,7 @@ class FusedSqueeze:
         caps = []
         row = 0                    # row offset in the combined tables
         for (instart, inend, bb) in self.masters:
-            L = inend - instart
-            cap = 16384
-            while cap < L:
-                cap *= 2
+            cap = hashmatch.pow2_cap(inend - instart)
             caps.append(cap)
             for b in range(len(bb) - 1):
                 gb = len(self.block_bounds)
@@ -428,10 +410,7 @@ class FusedSqueeze:
         self.tile_abs = np.array(tile_abs + [0] * pad, np.int64)
 
         # --- combined candidate tables (bucketed total cap) ---
-        cap_total = 16384
-        while cap_total < row:
-            cap_total *= 2
-        self.cap_total = cap_total
+        self.cap_total = cap_total = hashmatch.pow2_cap(row)
 
         bp_len_parts, bp_dist_parts, data_parts = [], [], []
         for mi, ((instart, inend, _), cap) in enumerate(
@@ -444,20 +423,10 @@ class FusedSqueeze:
                           for a in cand[mi])
                 assert tuple(bl.shape) == (cap, KBP), (bl.shape, cap, KBP)
             else:
-                prefix_len = min(instart - self.window_starts[mi],
-                                 spec.WINDOW_SIZE)
-                total = hashmatch.PREFIX + cap + 264
-                buf = np.empty(total, dtype=np.uint8)
-                buf[:hashmatch.PREFIX] = _filler(hashmatch.PREFIX)
-                if prefix_len:
-                    buf[hashmatch.PREFIX - prefix_len:hashmatch.PREFIX] = \
-                        data[instart - prefix_len:instart]
-                buf[hashmatch.PREFIX:hashmatch.PREFIX + L] = \
-                    data[instart:inend]
-                buf[hashmatch.PREFIX + L:] = 0
+                buf, _, min_pos, inend_real = hashmatch.padded_row(
+                    data, instart, inend, self.window_starts[mi], cap)
                 bl, bd, _ = hashmatch.build_candidates(
-                    torch.from_numpy(buf).to(dev), cap,
-                    hashmatch.PREFIX - prefix_len, hashmatch.PREFIX + L,
+                    torch.from_numpy(buf).to(dev), cap, min_pos, inend_real,
                     max_bp=KBP, **hashmatch.current_knobs())
             bp_len_parts.append(bl)
             bp_dist_parts.append(bd)

@@ -82,6 +82,45 @@ _M32 = 0xFFFFFFFF
 # The block's bytes start at row PREFIX of the padded array; rows
 # [PREFIX - prefix_len, PREFIX) hold real preceding bytes.
 PREFIX = spec.WINDOW_SIZE
+PAD_TAIL = 264  # rows after the block's capacity: >= MAX_MATCH + ladder slack
+
+
+def _filler(n: int) -> np.ndarray:
+    """Deterministic filler of the rows before the real prefix (min_pos
+    rejects them; the pattern only avoids runs of equal hashes)."""
+    return (np.arange(n, dtype=np.uint32) * 2654435761 >> 13).astype(np.uint8)
+
+
+def pow2_cap(n: int) -> int:
+    """Padded capacity of an n-byte block: a power of two >= 16384, so
+    the set of shapes stays log-bounded (the JAX package's buckets)."""
+    cap = 16384
+    while cap < n:
+        cap *= 2
+    return cap
+
+
+def padded_row(data: np.ndarray, instart: int, inend: int,
+               window_start: int = 0, cap: int | None = None, out=None):
+    """The padded input row of build_candidates for data[instart:inend].
+
+    Filler, then up to a window of real preceding bytes (none before
+    window_start), the block's bytes at PREFIX, zeros up to
+    PREFIX + cap + PAD_TAIL.  cap defaults to pow2_cap of the block's
+    length; `out`, a uint8 row of that length, is written in place of a
+    new one.  Returns (row, cap, min_pos, inend_real).
+    """
+    L = inend - instart
+    if cap is None:
+        cap = pow2_cap(L)
+    row = np.empty(PREFIX + cap + PAD_TAIL, np.uint8) if out is None else out
+    prefix_len = min(instart - window_start, spec.WINDOW_SIZE)
+    row[:PREFIX] = _filler(PREFIX)
+    if prefix_len:
+        row[PREFIX - prefix_len:PREFIX] = data[instart - prefix_len:instart]
+    row[PREFIX:PREFIX + L] = data[instart:inend]
+    row[PREFIX + L:] = 0
+    return row, cap, PREFIX - prefix_len, PREFIX + L
 
 
 def _pow_mod(e: int, base: int = _P) -> int:

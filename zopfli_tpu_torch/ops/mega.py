@@ -281,15 +281,11 @@ def _finish(state, lit_t, geo, npts, G: int, NL: int, nb_pad: int, MB: int,
     dev = best_cost.device
     LB, LEN_MASK = scan_kernel.LEN_BITS, scan_kernel.LEN_MASK
 
-    litg = lit_t.reshape(G, TILE, LANES)
-    empty = (best_pe == 0).to(torch.int32)
-    order = torch.sort(empty, dim=1, stable=True).indices
-    pe_c = torch.gather(best_pe, 1, order)
-    lit_c = torch.gather(litg, 1, order)
+    nsym_lane, pe_c, lit_c = scan_kernel.compact_lanes(
+        best_pe, lit_t.reshape(G, TILE, LANES))
     # Literal rows carry their byte above the length bits (the seed
     # program's packed-stream format); empty rows stay 0.
     pe_pk = torch.where((pe_c & LEN_MASK) == 1, (lit_c << LB) | 1, pe_c)
-    nsym_lane = (1 - empty).sum(1)                        # (G, LANES)
     packed = pe_pk[:, :fetch_cap, :].contiguous()
 
     # Best replica per block: earliest strict minimum in rb order (the

@@ -74,6 +74,20 @@ def pack_edge(length, dist):
     return length | (dist << LEN_BITS)
 
 
+def compact_lanes(pe: torch.Tensor, *others: torch.Tensor):
+    """Each lane's path rows to the front, empty rows (0) after them.
+
+    pe: (G, TILE, LANES) packed path rows as the traceback writes them.
+    A stable sort by emptiness keeps each lane's rows in position order;
+    each of `others` (pe's shape) is gathered in the same order.
+    Returns (nsym (G, LANES), compacted pe, *compacted others).
+    """
+    empty = (pe == 0).to(torch.int32)
+    order = torch.sort(empty, dim=1, stable=True).indices
+    gathered = [torch.gather(x, 1, order) for x in (pe, *others)]
+    return ((1 - empty).sum(dim=1), *gathered)
+
+
 def symbol_range_table() -> np.ndarray:
     """(HBINS, 8) int32 range table for the in-kernel histogram.
 

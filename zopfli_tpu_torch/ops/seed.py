@@ -184,15 +184,9 @@ class SeedCore:
                                        groups=G)
 
         # ---- per-lane compaction, carrying the literal byte ----
-        # A stable sort by emptiness keeps each lane's rows in order.
-        peg = pep.reshape(G, TILE, LANES)
-        litg = lit_t.reshape(G, TILE, LANES)
-        empty = (peg == 0).to(torch.int32)
-        order = torch.sort(empty, dim=1, stable=True).indices
-        pe_c = torch.gather(peg, 1, order)
-        lit_c = torch.gather(litg, 1, order)
+        nsym_lane, pe_c, lit_c = scan_kernel.compact_lanes(
+            pep.reshape(G, TILE, LANES), lit_t.reshape(G, TILE, LANES))
         pl_c = pe_c & scan_kernel.LEN_MASK
-        nsym_lane = (1 - empty).sum(dim=1)                # (G, LANES)
 
         # ---- global symbol stream (position order = lane order) ----
         # ONE packed scatter (literal rows carry their byte above the
@@ -358,26 +352,13 @@ def all_stored(block_costs, seed_ll, bounds) -> bool:
 
 def master_buffer(data: np.ndarray, instart: int, inend: int,
                   window_start: int = 0):
-    """The seed program's padded input of one master.
+    """The seed program's padded input of one master
+    (hashmatch.padded_row at its power-of-two cap).
 
-    Returns (buf uint8 (PREFIX + cap + 264,), cap, min_pos, inend_real):
-    up to a window of real preceding bytes (not before window_start),
-    filler before them, the master's bytes at PREFIX, zeros after.
+    Returns (buf uint8 (PREFIX + cap + PAD_TAIL,), cap, min_pos,
+    inend_real).
     """
-    L = inend - instart
-    cap = 16384
-    while cap < L:
-        cap *= 2
-    prefix_len = min(instart - window_start, spec.WINDOW_SIZE)
-    total = hashmatch.PREFIX + cap + 264
-    buf = np.empty(total, dtype=np.uint8)
-    buf[:hashmatch.PREFIX] = _filler(hashmatch.PREFIX)
-    if prefix_len:
-        buf[hashmatch.PREFIX - prefix_len:hashmatch.PREFIX] = \
-            data[instart - prefix_len:instart]
-    buf[hashmatch.PREFIX:hashmatch.PREFIX + L] = data[instart:inend]
-    buf[hashmatch.PREFIX + L:] = 0
-    return buf, cap, hashmatch.PREFIX - prefix_len, hashmatch.PREFIX + L
+    return hashmatch.padded_row(data, instart, inend, window_start)
 
 
 # Seed programs queued (cheap probes and their redos included), for
@@ -419,10 +400,6 @@ def seed_master(data: np.ndarray, instart: int, inend: int,
     """Run the seed program for one master; returns host-side results."""
     return seed_finish(seed_dispatch(data, instart, inend, maxblocks, cheap,
                                      window_start, device))
-
-
-def _filler(n: int) -> np.ndarray:
-    return (np.arange(n, dtype=np.uint32) * 2654435761 >> 13).astype(np.uint8)
 
 
 def probably_incompressible(data: np.ndarray, instart: int,

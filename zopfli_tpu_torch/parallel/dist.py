@@ -22,13 +22,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import spec
 from ..ops import dp, hashmatch
-# Deterministic filler for unused prefix rows (avoids equal-hash runs).
-from ..ops.fused_engine import _filler as hashmatch_filler
 
 PREFIX = hashmatch.PREFIX
-PAD_TAIL = 264  # >= MAX_MATCH + ladder slack
+PAD_TAIL = hashmatch.PAD_TAIL
 
 
 def total_row_len(cap: int) -> int:
@@ -148,24 +145,14 @@ def pack_blocks(data: np.ndarray, ranges: list[tuple[int, int]], cap: int):
     Returns (bufs (B,total) uint8, min_pos (B,) i32, inend_real (B,) i32).
     Every range must satisfy inend - instart <= cap.
     """
-    total = total_row_len(cap)
     B = len(ranges)
-    bufs = np.empty((B, total), dtype=np.uint8)
+    bufs = np.empty((B, total_row_len(cap)), dtype=np.uint8)
     min_pos = np.empty(B, dtype=np.int32)
     inend_real = np.empty(B, dtype=np.int32)
-    filler = hashmatch_filler(total)
     for i, (instart, inend) in enumerate(ranges):
-        L = inend - instart
-        if not 0 <= L <= cap:
+        if not 0 <= inend - instart <= cap:
             raise ValueError(f"pack_blocks: range {instart, inend} over "
                              f"cap {cap}")
-        prefix_len = min(instart, spec.WINDOW_SIZE)
-        row = bufs[i]
-        row[:PREFIX] = filler[:PREFIX]
-        if prefix_len:
-            row[PREFIX - prefix_len:PREFIX] = data[instart - prefix_len:instart]
-        row[PREFIX:PREFIX + L] = data[instart:inend]
-        row[PREFIX + L:] = 0
-        min_pos[i] = PREFIX - prefix_len
-        inend_real[i] = PREFIX + L
+        _, _, min_pos[i], inend_real[i] = hashmatch.padded_row(
+            data, instart, inend, cap=cap, out=bufs[i])
     return bufs, min_pos, inend_real

@@ -3,9 +3,14 @@
 The reference's per-block iteration loop (squeeze.c:446-526 -- stats
 feedback, keep-best by exact dynamic-block size, fixed-seed MWC
 randomization, 1.0/0.5 blending) runs on the device inside the fused
-engine; this module owns dispatch/collect, the greedy-seeded path
-(ZT_SEED=greedy), the device-seeded default path, and the hash-collision
-verify + native fallback.
+engine.  This module owns the seed pipeline's stages for a chunk of
+masters, which deflate.deflate_device runs in turn: devseed_fire (queue
+the seed programs), devseed_dispatch (seed results, then the fused
+squeeze queued) and devseed_collect (pull, verify, native fallback on a
+hash collision).  greedy_seed_stats seeds a FusedSqueeze from the host
+greedy parse, as the JAX package's greedy-seeded path does: the tests
+and chip_smoke.py hold the fused loop against that package through it
+and fused_collect.
 """
 
 from __future__ import annotations
@@ -17,22 +22,6 @@ from .lz77 import LZ77Store
 from .squeeze import SymbolStats
 from .utils.counters import bump
 from .utils.logging import span
-
-
-def lz77_optimal_fused(data: np.ndarray, masters, numiterations: int,
-                       greedy_fn, device="cuda", trace=None,
-                       devices=None) -> list[list[LZ77Store]]:
-    """Fused-squeeze parses for a batch of masters.
-
-    masters: list of (instart, inend, block_bounds).  The full iteration
-    control (squeeze.c:446-526) runs on `device` (ops.fused_engine);
-    per-block final stores come back compacted.  With `devices`, the
-    lane groups are sharded over them (the reference's mesh).
-    Returns one list of LZ77Store per master, blocks in order.
-    """
-    fs, handle = fused_dispatch(data, masters, numiterations, greedy_fn,
-                                device=device, devices=devices)
-    return fused_collect(fs, handle, numiterations, trace=trace)
 
 
 def greedy_seed_stats(data: np.ndarray, block_bounds, greedy_fn):
@@ -49,20 +38,6 @@ def greedy_seed_stats(data: np.ndarray, block_bounds, greedy_fn):
     return seed_ll, seed_d
 
 
-def fused_dispatch(data: np.ndarray, masters, numiterations: int,
-                   greedy_fn, device="cuda", devices=None):
-    """Async half of lz77_optimal_fused: build + queue the device loop."""
-    from .ops.fused_engine import FusedSqueeze
-
-    if numiterations < 1:
-        raise ValueError("numiterations must be >= 1")
-
-    fs = FusedSqueeze(data, masters, device=device, devices=devices)
-    with span("zt.seed"):
-        seed_ll, seed_d = greedy_seed_stats(data, fs.block_bounds, greedy_fn)
-    return fs, fs.dispatch(seed_ll, seed_d, numiterations)
-
-
 # Diagnostic counter: silent native fallbacks on verify failure make
 # sizes look fine while time doubles -- experiments must check this.
 VERIFY_FAILS = [0]
@@ -70,7 +45,8 @@ VERIFY_FAILS = [0]
 
 def fused_collect(fs, handle, numiterations: int,
                   trace=None) -> list[list[LZ77Store]]:
-    """Blocking half: pull parses, verify, fall back on collisions."""
+    """Pull the parses of fs.dispatch's handle, verify them, fall back
+    on collisions."""
     data = fs.data
     with span("zt.collect"):
         parses, best_cost, best_sll, best_sd = fs.collect(handle)
