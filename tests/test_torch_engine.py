@@ -100,13 +100,13 @@ def test_verify_rejects_a_bogus_match_and_falls_back():
     data = np.frombuffer(b"abcdefgh" * 64 + b"zyxwvuts" * 64, np.uint8)
     eng = CPU_ENGINE(data, 0, len(data))
     good = eng.squeeze_run(None, None)
-    assert eng._verify(*good, data)
+    assert eng._verify(*good)
     lit = np.full(3, 8, np.uint16)
     bogus_lit = np.concatenate([np.frombuffer(b"abcdefgh", np.uint8)
                                 .astype(np.uint16), lit])
     bogus_dist = np.concatenate([np.zeros(8, np.uint16),
                                  np.array([3, 8, 8], np.uint16)])
-    assert not eng._verify(bogus_lit, bogus_dist, data)
+    assert not eng._verify(bogus_lit, bogus_dist)
 
     traceback = engine.dp.traceback
     engine.dp.traceback = lambda *a: (bogus_lit, bogus_dist)

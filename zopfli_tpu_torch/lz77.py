@@ -2,18 +2,16 @@
 
 Array-of-columns redesign of the reference store
 (reference: src/zopfli/lz77.h:44-62, lz77.c:98-217).  A store is built in
-one shot from (litlens, dists) numpy arrays; symbol mapping and the
-chunked cumulative histograms are vectorized instead of per-append.
+one shot from (litlens, dists) numpy arrays: positions, symbols and the
+chunked cumulative histograms come from one native pass
+(native.parse_index), which can also check the parse against its bytes.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from . import spec
-
-# Cumulative-histogram chunk length (symbols per checkpoint).
-_CHUNK = 1024
+from . import native, spec
 
 
 class LZ77Store:
@@ -26,35 +24,32 @@ class LZ77Store:
 
     def __init__(self, data: np.ndarray, litlens: np.ndarray,
                  dists: np.ndarray, instart: int = 0):
+        self._index(data, litlens, dists, instart, None)
+
+    @classmethod
+    def checked(cls, data: np.ndarray, litlens: np.ndarray,
+                dists: np.ndarray, instart: int, inend: int, wstart: int):
+        """(store, matched bytes compared) of a parse of
+        data[instart:inend], or (None, 0) when the parse is unsound: its
+        steps do not cover the range exactly, a distance passes the window
+        (32,768) or reaches before `wstart`, or a match's bytes differ
+        from those it copies."""
+        store = cls.__new__(cls)
+        compared = store._index(data, litlens, dists, instart,
+                                (inend, wstart))
+        return (store, compared) if compared >= 0 else (None, 0)
+
+    def _index(self, data, litlens, dists, instart, check) -> int:
         self.data = data
         self.litlens = np.asarray(litlens, dtype=np.int32)
         self.dists = np.asarray(dists, dtype=np.int32)
-        n = len(self.litlens)
-        step = np.where(self.dists == 0, 1, self.litlens).astype(np.int64)
-        self.pos = instart + np.concatenate([[0], np.cumsum(step[:-1])])
-        self.size = n
-
-        is_match = self.dists != 0
-        self.ll_symbol = np.where(
-            is_match, spec.LENGTH_SYMBOL[np.minimum(self.litlens, 258)],
-            self.litlens).astype(np.int32)
-        self.d_symbol = np.where(
-            is_match, spec.dist_symbol(np.maximum(self.dists, 1)),
-            0).astype(np.int32)
-
-        # Checkpointed cumulative histograms: cum_ll[c] = histogram of
-        # symbols [0, c*_CHUNK).
-        nchunks = n // _CHUNK + 1
-        self._cum_ll = np.zeros((nchunks, spec.NUM_LL), dtype=np.int64)
-        self._cum_d = np.zeros((nchunks, spec.NUM_D), dtype=np.int64)
-        for c in range(1, nchunks):
-            lo, hi = (c - 1) * _CHUNK, c * _CHUNK
-            self._cum_ll[c] = self._cum_ll[c - 1] + np.bincount(
-                self.ll_symbol[lo:hi], minlength=spec.NUM_LL)
-            dseg = self.d_symbol[lo:hi][is_match[lo:hi]]
-            self._cum_d[c] = self._cum_d[c - 1] + np.bincount(
-                dseg, minlength=spec.NUM_D)
-        self._is_match = is_match
+        (self.pos, self.ll_symbol, self.d_symbol, self._cum_ll, self._cum_d,
+         compared) = native.parse_index(
+            data, np.ascontiguousarray(self.litlens),
+            np.ascontiguousarray(self.dists), instart, check)
+        self.size = len(self.litlens)
+        self._is_match = self.dists != 0
+        return compared
 
     def byte_range(self, lstart: int, lend: int) -> int:
         """Number of input bytes spanned by symbols [lstart, lend)."""
@@ -66,10 +61,10 @@ class LZ77Store:
 
     def _cum_at(self, k: int):
         """Histograms of symbols [0, k)."""
-        c = k // _CHUNK
+        c = k // native.INDEX_CHUNK
         ll = self._cum_ll[c].copy()
         d = self._cum_d[c].copy()
-        lo = c * _CHUNK
+        lo = c * native.INDEX_CHUNK
         if k > lo:
             ll += np.bincount(self.ll_symbol[lo:k], minlength=spec.NUM_LL)
             seg = self.d_symbol[lo:k][self._is_match[lo:k]]
@@ -98,18 +93,18 @@ def concat_stores(stores) -> "LZ77Store":
 
 
 def verify_store(store: LZ77Store) -> None:
-    """Assert every match reproduces the bytes it references.
+    """Assert every match reproduces the bytes it references and every
+    literal equals its byte.
 
     Semantics of reference ZopfliVerifyLenDist (lz77.c:273-286), applied to
-    the whole store at once.
+    the whole store at once; the matches go through the native check.
     """
     data = store.data
-    for i in np.nonzero(store.dists)[0]:
-        p = int(store.pos[i])
-        d = int(store.dists[i])
-        l = int(store.litlens[i])
-        if not np.array_equal(data[p : p + l], data[p - d : p - d + l]):
-            raise AssertionError(f"bad match at symbol {i}: pos={p} len={l} dist={d}")
+    instart = int(store.pos[0])
+    end = instart + store.byte_range(0, store.size)
+    if LZ77Store.checked(data, store.litlens, store.dists, instart, end,
+                         0)[0] is None:
+        raise AssertionError("a match does not reproduce its bytes")
     # Literal symbols must equal the data bytes.
     lit = store.dists == 0
     if lit.any():

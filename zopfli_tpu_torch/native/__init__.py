@@ -14,6 +14,8 @@ import threading
 
 import numpy as np
 
+from .. import spec
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _LIB_PATH = os.path.join(_BUILD_DIR, "libzt_host.so")
@@ -21,6 +23,10 @@ _SRC_PATH = os.path.join(_HERE, "src", "zt_host.cc")
 
 _lock = threading.Lock()
 _lib = None
+
+# parse_index writes a cumulative-histogram checkpoint every this many
+# symbols.
+INDEX_CHUNK = 1024
 
 
 def _build() -> None:
@@ -97,6 +103,9 @@ def lib() -> ctypes.CDLL:
         l.zt_put_lz77.restype = ctypes.c_int64
         l.zt_put_lz77.argtypes = [vp, ctypes.c_int64, ctypes.c_int64, vp, vp,
                                   ctypes.c_int64, vp, vp, vp, vp]
+        l.zt_parse_index.restype = ctypes.c_int64
+        l.zt_parse_index.argtypes = [vp, vp, vp] + [ctypes.c_int64] * 5 + [
+            ctypes.c_int32, vp, vp, vp, vp, vp]
         l.zt_tree_sizes.restype = None
         l.zt_tree_sizes.argtypes = [i32p, i32p, i64p]
         _lib = l
@@ -353,3 +362,46 @@ def put_lz77(buf: np.ndarray, bit: int, litlens: np.ndarray,
     if end < 0:
         raise ValueError("put_lz77: the payload runs past the buffer")
     return end
+
+
+def parse_index(data: np.ndarray, litlens: np.ndarray, dists: np.ndarray,
+                instart: int, check=None):
+    """An LZ77 store's index of the parse (litlens, dists) from byte
+    `instart` of `data`, in one native pass: (pos, ll_symbol, d_symbol,
+    cum_ll, cum_d, compared), as `lz77.LZ77Store` keeps them.
+
+    check: None, or (inend, wstart) to hold the parse to data[instart,
+    inend) with matches reaching back no further than wstart (steps
+    summing to the range, distances 1..min(pos - wstart, 32768), every
+    matched byte equal to its source).  `compared` is the matched bytes
+    compared (0 without a check), or -1 when the check fails; the index
+    is then partial.
+
+    litlens/dists: int32, one dimension, of one length.
+    """
+    for a in (litlens, dists):
+        if (a.dtype != np.int32 or a.ndim != 1
+                or not a.flags.c_contiguous):
+            raise ValueError("parse_index takes contiguous 1-D int32 symbols")
+    if litlens.shape != dists.shape:
+        raise ValueError("parse_index: litlens and dists differ in shape")
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    n = litlens.size
+    inend, wstart = check if check is not None else (instart, instart)
+    if check is not None and not 0 <= wstart <= instart <= inend <= data.size:
+        raise ValueError("parse_index: the checked range lies outside the"
+                         " data")
+    pos = np.empty(max(n, 1), np.int64)
+    ll_symbol = np.empty(n, np.int32)
+    d_symbol = np.empty(n, np.int32)
+    cum_ll = np.empty((n // INDEX_CHUNK + 1, spec.NUM_LL), np.int64)
+    cum_d = np.empty((n // INDEX_CHUNK + 1, spec.NUM_D), np.int64)
+    compared = lib().zt_parse_index(
+        data.ctypes.data, litlens.ctypes.data, dists.ctypes.data, n,
+        INDEX_CHUNK, instart, inend, wstart, check is not None,
+        pos.ctypes.data, ll_symbol.ctypes.data, d_symbol.ctypes.data,
+        cum_ll.ctypes.data, cum_d.ctypes.data)
+    if compared == -2:
+        raise ValueError("parse_index: a symbol outside the store's"
+                         " alphabets")
+    return pos, ll_symbol, d_symbol, cum_ll, cum_d, compared

@@ -1354,4 +1354,77 @@ int64_t zt_put_lz77(uint8_t* buf, int64_t cap, int64_t bit,
   return w.Finish();
 }
 
+// An LZ77 store's index of n symbols (litlens/dists) starting at byte
+// `instart` of `data`, in one pass: pos (int64, max(n, 1) entries; an
+// empty parse's one entry is instart), the litlen and distance symbols
+// (int32; a match's length clamped to 258 and its distance raised to 1
+// first, the distance symbol 0 for a literal), and the cumulative
+// histograms cum_ll[c] (288) and cum_d[c] (32) of symbols
+// [0, c * chunk) for c in 0..n / chunk.
+//
+// With `check` set, the pass also holds the parse to data[instart,
+// inend): the steps (1 a literal, its length a match) sum to
+// inend - instart (an empty parse only where inend == instart), every
+// match's distance is 1..min(pos - wstart, 32768) and its bytes equal
+// those `dist` back.  Bytes are compared only once both ranges lie in
+// [wstart, inend).  The caller keeps 0 <= wstart <= instart <= inend <=
+// len(data).
+//
+// Returns the matched bytes compared (0 without `check`), -1 when the
+// check fails (the outputs are then partial), or -2 on a symbol outside
+// the store's alphabets (a literal outside 0..287, a negative length, a
+// distance whose symbol passes 31).
+int64_t zt_parse_index(const uint8_t* data, const int32_t* litlens,
+                       const int32_t* dists, int64_t n, int64_t chunk,
+                       int64_t instart, int64_t inend, int64_t wstart,
+                       int32_t check,
+                       int64_t* pos, int32_t* ll_symbol, int32_t* d_symbol,
+                       int64_t* cum_ll, int64_t* cum_d) {
+  constexpr int kNumLL = 288, kNumD = 32;
+  int64_t ll[kNumLL] = {};
+  int64_t dh[kNumD] = {};
+  std::memcpy(cum_ll, ll, sizeof(ll));
+  std::memcpy(cum_d, dh, sizeof(dh));
+  int64_t p = instart;
+  int64_t compared = 0, in_chunk = 0;
+  if (n == 0) pos[0] = instart;
+  for (int64_t i = 0; i < n; ++i) {
+    int32_t l = litlens[i];
+    int32_t d = dists[i];
+    pos[i] = p;
+    if (d == 0) {
+      if ((uint32_t)l >= (uint32_t)kNumLL) return -2;
+      ll_symbol[i] = l;
+      d_symbol[i] = 0;
+      ++ll[l];
+      p += 1;
+    } else {
+      if (l < 0) return -2;
+      int s = zt::LengthSymbol(l < zt::kMaxMatch ? l : zt::kMaxMatch);
+      int ds = zt::DistSymbol(d > 1 ? d : 1);
+      if (ds >= kNumD) return -2;
+      ll_symbol[i] = s;
+      d_symbol[i] = ds;
+      ++ll[s];
+      ++dh[ds];
+      if (check) {
+        if (d < 0 || d > p - wstart || d > zt::kWindowSize || p + l > inend)
+          return -1;
+        if (std::memcmp(data + p, data + p - d, (size_t)l) != 0) return -1;
+        compared += l;
+      }
+      p += l;
+    }
+    if (++in_chunk == chunk) {
+      in_chunk = 0;
+      cum_ll += kNumLL;
+      cum_d += kNumD;
+      std::memcpy(cum_ll, ll, sizeof(ll));
+      std::memcpy(cum_d, dh, sizeof(dh));
+    }
+  }
+  if (check && p != inend) return -1;
+  return compared;
+}
+
 }  // extern "C"

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import spec
+from ..lz77 import LZ77Store
 from ..utils.counters import bump
 from . import dp, hashmatch
 
@@ -110,7 +111,7 @@ class DeviceBlockEngine:
         cd = choice_dist[0, : self.L + 1].cpu().numpy()
         block = self.data[self.instart : self.inend]
         litlens, dists = dp.traceback(cl, cd, self.L, block)
-        if not self._verify(litlens, dists, block):
+        if not self._verify(litlens, dists):
             # Hash collision produced a bogus match: exact fallback.
             bump(FALLBACKS)
             from .. import native
@@ -122,27 +123,12 @@ class DeviceBlockEngine:
                 eng.close()
         return litlens, dists
 
-    def _verify(self, litlens: np.ndarray, dists: np.ndarray,
-                block: np.ndarray) -> bool:
-        """Every chosen match must literally reproduce its bytes."""
-        if len(litlens) == 0:
-            return True
-        step = np.where(dists == 0, 1, litlens).astype(np.int64)
-        pos = np.concatenate([[0], np.cumsum(step[:-1])]) + self.instart
-        m = dists != 0
-        if not m.any():
-            return True
-        mp = pos[m]
-        md = dists[m].astype(np.int64)
-        ml = litlens[m].astype(np.int64)
-        if (md > mp).any():
-            return False
-        # Flatten all match extents into one gather-compare.
-        total = int(ml.sum())
-        offs = np.arange(total) - np.repeat(np.cumsum(ml) - ml, ml)
-        dsts = np.repeat(mp, ml) + offs
-        srcs = np.repeat(mp - md, ml) + offs
-        return bool(np.array_equal(self.data[dsts], self.data[srcs]))
+    def _verify(self, litlens: np.ndarray, dists: np.ndarray) -> bool:
+        """Every chosen match must literally reproduce its bytes: the
+        fused loop's native check (lz77.LZ77Store.checked), with the
+        window starting at the buffer's first byte."""
+        return LZ77Store.checked(self.data, litlens, dists, self.instart,
+                                 self.inend, 0)[0] is not None
 
 
 def device_greedy(data: np.ndarray, instart: int, inend: int):

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .. import spec
+from ..lz77 import LZ77Store
 from ..utils.counters import bump
 from ..utils.logging import span
 from . import costmodel, hashmatch, scan_kernel
@@ -52,6 +53,10 @@ _DSYM_EXTRA[:30] = spec.DIST_SYM_EXTRA_BITS
 # Diagnostic counter: a fetch-cap overflow pulls the full (G, TILE,
 # LANES) path tensor instead of the compact rows.
 FETCH_RETRIES = [0]
+
+# Diagnostic counter: the blocks whose parse verify_parse's native pass
+# checked, and the matched bytes it compared.
+VERIFY = {"blocks": 0, "match_bytes": 0}
 
 
 def prepare_group(bp_len, bp_dist, data_block, tile_start, tile_nbytes,
@@ -596,29 +601,15 @@ class FusedSqueeze:
         return (parses, cost_all[chosen], best_sll[chosen],
                 best_sd[chosen])
 
-    def verify_parse(self, b: int, litlens: np.ndarray,
-                     dists: np.ndarray) -> bool:
-        """Hash-collision guard: every match must reproduce its bytes."""
+    def verify_parse(self, b: int, litlens: np.ndarray, dists: np.ndarray):
+        """Hash-collision guard: block b's LZ77Store when every match
+        reproduces its bytes within the block's window (which starts at
+        the owning input's first byte in multi-file batches), else None.
+        One native pass checks the parse and builds the store."""
         instart, inend = self.block_bounds[b]
-        if len(litlens) == 0:
-            return inend == instart
-        step = np.where(dists == 0, 1, litlens).astype(np.int64)
-        if int(step.sum()) != inend - instart:
-            return False
-        pos = np.concatenate([[0], np.cumsum(step[:-1])]) + instart
-        m = dists != 0
-        if not m.any():
-            return True
-        mp = pos[m]
-        md = dists[m].astype(np.int64)
-        ml = litlens[m].astype(np.int64)
-        # Matches must stay within this block's window (which starts at
-        # the owning input's first byte in multi-file batches).
-        if (md > mp - self.block_wstart[b]).any() \
-                or (md > spec.WINDOW_SIZE).any():
-            return False
-        total = int(ml.sum())
-        offs = np.arange(total) - np.repeat(np.cumsum(ml) - ml, ml)
-        dsts = np.repeat(mp, ml) + offs
-        srcs = np.repeat(mp - md, ml) + offs
-        return bool(np.array_equal(self.data[dsts], self.data[srcs]))
+        store, compared = LZ77Store.checked(self.data, litlens, dists,
+                                            instart, inend,
+                                            self.block_wstart[b])
+        bump(VERIFY, "blocks")
+        bump(VERIFY, "match_bytes", compared)
+        return store

@@ -45,7 +45,8 @@ VERIFY_FAILS = [0]
 
 def fused_collect(fs, handle, numiterations: int,
                   trace=None) -> list[list[LZ77Store]]:
-    """Pull the parses of fs.dispatch's handle, verify them, fall back
+    """Pull the parses of fs.dispatch's handle, check each block's parse
+    and build its store in one native pass (fs.verify_parse), fall back
     on collisions."""
     data = fs.data
     with span("zt.collect"):
@@ -61,12 +62,14 @@ def fused_collect(fs, handle, numiterations: int,
                 lit, dst = parses[b]
                 if trace is not None:
                     trace(b, numiterations - 1, float(best_cost[b]))
-                if not fs.verify_parse(b, lit, dst):
+                store = fs.verify_parse(b, lit, dst)
+                if not store:
                     bump(VERIFY_FAILS)
                     with span("zt.verify_fallback"):
                         lit, dst = _native_squeeze(fs, b, best_sll[b],
                                                    best_sd[b])
-                stores.append(LZ77Store(data, lit, dst, bs))
+                    store = LZ77Store(data, lit, dst, bs)
+                stores.append(store)
                 b += 1
             out.append(stores)
     return out

@@ -2,11 +2,14 @@
 
 The counters themselves stay plain module-level dicts and one-element
 lists (scan_kernel.LAUNCHES, devsplit.STATS, seed.PROGRAMS,
-engine.FALLBACKS, fused_engine.FETCH_RETRIES,
+engine.FALLBACKS, fused_engine.FETCH_RETRIES, fused_engine.VERIFY,
 squeeze_batched.VERIFY_FAILS, emit.PACKED, png.optimize.PROBE), so
-their readers index them as before.  emit.PACKED counts the bits that
-each BitStream pack wrote with the native payload pass ("payload_bits")
-and as header and tree fields ("field_bits").
+their readers index them as before.  fused_engine.VERIFY counts the
+blocks whose parse the native pass checked ("blocks") and the matched
+bytes it compared ("match_bytes").
+emit.PACKED counts the bits that each BitStream pack wrote with the
+native payload pass ("payload_bits") and as header and tree fields
+("field_bits").
 `counter[key] += n` is a read-modify-write that the interpreter lock does
 not make atomic: masters on worker threads (deflate.deflate with
 Options.workers != 1), and the PNG probe's trials on its thread pool,
