@@ -8,6 +8,7 @@
     python3 chip_smoke.py --only mega      # build + phase mega only
     python3 chip_smoke.py --only split     # build + the split search only
     python3 chip_smoke.py --only workers   # build + phase 10 only
+    python3 chip_smoke.py --only i500      # build + phase i500 only
 
 Phases, each printed as one JSON line:
   1. environment: the card's name and power limit, the kernels' build.
@@ -84,6 +85,17 @@ Phases, each printed as one JSON line:
      engine's.  The fused loop's K1 inputs at the most lane groups of
      the batch are kept from the first run, and K1 and K2 are held
      bit-equal to their plain versions on them and timed.
+  i500: zopflipng's "really good" example (the benchmark's
+     zopflipng-i500-all-filters configuration: 500 iterations, all nine
+     filter strategies, lossy_transparent, lossy_8bit) on one call of
+     the android-launcher mix (ten seeded RGBA launcher icons, 48-192
+     px; 90 zlib jobs in one compress_many), twice: every output passes
+     the benchmark's alpha-aware check and is smaller than its zlib-9
+     yardstick, the two runs' bytes are equal, a block row drew more
+     than 48 randomization events (`fused_engine.RANDOM`), the second
+     run built no maps (the first grows them to its loops' events), and
+     no verify fallback.  Its line names each of these conditions with
+     its outcome, and each run's output digest.
   7. cli: `zopfli_tpu_torch.cli.main(["--i15", file])` in process on
      phase 3's input (bytes equal to phase 3's compress, launches as in
      phase 3), `python3 -m zopfli_tpu_torch.cli -c --i15 file` in a fresh
@@ -141,6 +153,7 @@ present.  Imports nothing of JAX.
 from __future__ import annotations
 
 import glob
+import hashlib
 import json
 import os
 import subprocess
@@ -1249,6 +1262,7 @@ def _reset_counters():
     for k in fused_engine.VERIFY:
         fused_engine.VERIFY[k] = 0
     fused_engine.FETCH_RETRIES[0] = 0
+    fused_engine.RANDOM["events_max"] = 0
     seed.PROGRAMS[0] = 0
     engine.FALLBACKS[0] = 0
 
@@ -1263,7 +1277,8 @@ def _counters() -> dict:
             "verify_fails": squeeze_batched.VERIFY_FAILS[0],
             "verify": dict(fused_engine.VERIFY),
             "engine_fallbacks": engine.FALLBACKS[0],
-            "fetch_retries": fused_engine.FETCH_RETRIES[0]}
+            "fetch_retries": fused_engine.FETCH_RETRIES[0],
+            "random": dict(fused_engine.RANDOM)}
 
 
 def _compress_run(raw: bytes, label: str, dev) -> tuple[dict, bytes]:
@@ -1765,6 +1780,54 @@ def phase_png(inputs, dev="cuda") -> tuple[dict, dict]:
     if not ok:
         raise RuntimeError("PNG batch check failed")
     return runs["device_warm"]["launches"], batch
+
+
+def phase_i500(dev="cuda") -> None:
+    """One call of the benchmark's zopflipng-i500-all-filters cell, twice
+    (see the module docstring)."""
+    import torch
+
+    from portbench import gen
+    from portbench.manifest import Manifest
+    from zopfli_tpu_torch.ops import fused_engine
+    from zopfli_tpu_torch.png.optimize import PNGOptions, optimize_many
+
+    man = Manifest()
+    cell = man.cell("zopflipng-i500-all-filters.android-launcher")
+    config = man.config(cell["config"])
+    fmt = man.module("reference/formats", config["format"])
+    items = gen.make_pool(man.traffic(cell["traffic"]), 3190023999,
+                          man).calls[0]
+    opts = PNGOptions(**config["options"], device=dev)
+    runs, outs = [], []
+    for _ in range(2):
+        _reset_counters()
+        built = fused_engine.RANDOM["maps_built"]
+        t0 = time.time()
+        out = optimize_many([i.raw for i in items], opts)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        outs.append(out)
+        runs.append({"seconds": secs, **_counters(),
+                     "maps_built": fused_engine.RANDOM["maps_built"] - built,
+                     "judged": [fmt.judge(o, i) for o, i in zip(out, items)],
+                     "smaller": [len(o) < fmt.zlib9_size(i)
+                                 for o, i in zip(out, items)],
+                     "bytes": sum(map(len, out)),
+                     "digest": hashlib.sha256(b"".join(out)).hexdigest()})
+    checks = {
+        "judged": all(r["judged"] == [None] * len(items) for r in runs),
+        "smaller": all(all(r["smaller"]) for r in runs),
+        "no_verify_fails": all(r["verify_fails"] == 0 for r in runs),
+        "past_48_events": all(r["random"]["events_max"] > 48 for r in runs),
+        "warm_built_no_maps": runs[1]["maps_built"] == 0,
+        "bytes_equal": outs[0] == outs[1]}
+    ok = all(checks.values())
+    emit({"phase": "i500", "ok": ok, "checks": checks, "card": card_line(),
+          "images": len(items), "pixel_bytes": sum(i.nbytes for i in items),
+          "runs": runs})
+    if not ok:
+        raise RuntimeError("i500 check failed")
 
 
 def phase_cli(raw: bytes, want_gz: bytes, inputs) -> None:
@@ -2653,11 +2716,13 @@ def main(argv) -> int:
 
         phase_env(zt_scan)
         data = np.frombuffer(corpus_1mib(), dtype=np.uint8)
-        if only in ("oracle", "parallel", "mega", "split", "workers"):
+        if only in ("oracle", "parallel", "mega", "split", "workers",
+                    "i500"):
             {"oracle": phase_oracle, "parallel": phase_parallel,
              "mega": phase_mega, "split": phase_split,
-             "workers": phase_workers}[only](
-                *(() if only in ("parallel", "workers") else (data,)))
+             "workers": phase_workers, "i500": phase_i500}[only](
+                *(() if only in ("parallel", "workers", "i500")
+                  else (data,)))
             return 0
         kernels = phase_kernels(data)
         if only == "kernels":
@@ -2668,6 +2733,7 @@ def main(argv) -> int:
         phase_many()
         inputs = png_inputs()
         png_launches, png_k12 = phase_png(inputs)
+        phase_i500()
         phase_cli(data.tobytes(), gz, inputs)
         oracle = phase_oracle(data)
         g4 = phase_parallel()

@@ -14,7 +14,8 @@ from torch.profiler import ProfilerActivity, profile
 import zopfli_tpu_torch as zt
 from portbench.manifest import Manifest
 from zopfli_tpu_torch.ops import fused_engine
-from zopfli_tpu_torch.png.optimize import PNGOptions, optimize_many
+from zopfli_tpu_torch.png.optimize import (STRATEGIES, PNGOptions,
+                                           optimize_many)
 from zopfli_tpu_torch.squeeze_batched import VERIFY_FAILS
 from zopfli_tpu_torch.utils.logging import span
 
@@ -27,6 +28,7 @@ PARENTS = {
     "zt.seed.probe": ("zt.seed",),
     "zt.seed.upload": ("zt.seed",),
     "zt.squeeze.prep": ("zt.call",),
+    "zt.squeeze.maps": ("zt.squeeze.prep",),
     "zt.squeeze.compact": ("zt.call",),
     "zt.collect_wait": ("zt.collect", "zt.call"),
     "zt.verify": ("zt.call",),
@@ -157,6 +159,47 @@ def test_png_spans_count_the_optimizers_stages():
         want = {"zt.png.probe": ("zt.png.prepare",),
                 "zt.png.trial": ("zt.png.probe",),
                 "zt.call": ("zt.png.deflate",)}.get(sp[0])
+        if want:
+            assert _inside(sp, spans, want), sp
+
+
+def test_one_maps_span_a_loop(traced):
+    """[zt.squeeze.maps] once a fused loop, inside its [zt.squeeze.prep]
+    (PARENTS), and no span inside the loop over iterations."""
+    _, _, spans = traced
+    loops = sum(n == "zt.iterations" for n, *_ in spans)
+    assert loops >= 2
+    assert sum(n == "zt.squeeze.maps" for n, *_ in spans) == loops
+    assert not any(n == "zt.iteration" for n, *_ in spans)
+
+
+def test_png_spans_of_the_explicit_strategies():
+    """`optimize_many` with every filter strategy named: one
+    [zt.png.strategies] an image inside its [zt.png.prepare], one
+    [zt.png.bruteforce] inside it, and no automatic probe."""
+    man = Manifest()
+    kind, mix = man.module("inputs", "icons"), man.traffic("android-launcher")
+    d = kind.design(mix["apps"][1], np.random.default_rng(3), mix["icon"])
+    pngs = [kind.save(kind.render(d, s, shape, mix["icon"]), mix["writer"])
+            for s, shape in ((16, "ic_launcher"), (20, "ic_launcher_round"))]
+    opts = PNGOptions(engine="native", num_iterations=1,
+                      filter_strategies=list(STRATEGIES),
+                      auto_filter_strategy=False, lossy_transparent=True)
+    plain = optimize_many(pngs, opts)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        outs = optimize_many(pngs, opts)
+    assert outs == plain
+    spans = _spans(prof)
+    count = {n: sum(s[0] == n for s in spans) for n in (
+        "zt.png.prepare", "zt.png.strategies", "zt.png.bruteforce",
+        "zt.png.probe", "zt.png.trial", "zt.png.deflate", "zt.png.verify")}
+    assert count == {"zt.png.prepare": 2, "zt.png.strategies": 2,
+                     "zt.png.bruteforce": 2, "zt.png.probe": 0,
+                     "zt.png.trial": 0, "zt.png.deflate": 1,
+                     "zt.png.verify": 2}
+    for sp in spans:
+        want = {"zt.png.strategies": ("zt.png.prepare",),
+                "zt.png.bruteforce": ("zt.png.strategies",)}.get(sp[0])
         if want:
             assert _inside(sp, spans, want), sp
 

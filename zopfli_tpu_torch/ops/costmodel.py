@@ -465,6 +465,7 @@ def randomize_maps(max_events: int):
     number of draws, so the in-place self-referential rewrite
     freqs[i] = freqs[rand % n] resolves to a pure gather through the
     chase map m[i] = m[src[i]] (src < i reads already-rewritten values).
+    Event e is the e-th randomize_stat_freqs of one continuing MwcRng.
     Returns (ll_maps (E, 288) int32, d_maps (E, 32) int32) as numpy.
     """
     from ..squeeze import MwcRng

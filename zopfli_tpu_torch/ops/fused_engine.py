@@ -26,6 +26,7 @@ unsharded parses bit for bit.
 from __future__ import annotations
 
 import os
+import threading
 from types import SimpleNamespace
 
 import numpy as np
@@ -33,7 +34,7 @@ import torch
 
 from .. import spec
 from ..lz77 import LZ77Store
-from ..utils.counters import bump
+from ..utils.counters import bump, bump_max
 from ..utils.logging import span
 from . import costmodel, hashmatch, scan_kernel
 
@@ -41,8 +42,9 @@ KBP = hashmatch.MAX_BP
 TILE = int(os.environ.get("ZT_TILE", "8192"))
 LANES = int(os.environ.get("ZT_LANES", "256"))
 TIE_GRID = float(os.environ.get("ZT_TIE_GRID", "128"))  # 0 = off
-MAX_EVENTS = 48          # randomization events cap; replicas start at
-                         # staggered offsets into the same map stream
+MIN_EVENTS = 48          # the fewest randomization events a device holds
+                         # maps for; replicas start at staggered offsets
+                         # into the same map stream
 LARGE_COST = 1 << 30
 
 _LSYM = np.asarray(spec.LENGTH_SYMBOL[3:259], dtype=np.int64)
@@ -57,6 +59,39 @@ FETCH_RETRIES = [0]
 # Diagnostic counter: the blocks whose parse verify_parse's native pass
 # checked, and the matched bytes it compared.
 VERIFY = {"blocks": 0, "match_bytes": 0}
+
+# Diagnostic counter: the most randomization events any block row of a
+# collected loop drew ("events_max"), and the times the maps were built
+# and uploaded to a device ("maps_built").
+RANDOM = {"events_max": 0, "maps_built": 0}
+
+_MAPS: dict = {}         # str(device) -> (ll_maps, d_maps), int64
+_MAPS_LOCK = threading.Lock()
+
+
+def events_needed(numiterations: int, rep_off_max: int) -> int:
+    """Events of the randomization stream a loop of `numiterations` can
+    read: a row draws at most one event an iteration after the sixth
+    (squeeze.c:518), from its replica's offset into the stream on."""
+    return max(MIN_EVENTS, int(numiterations) - 6 + int(rep_off_max))
+
+
+def random_maps(device, events: int):
+    """The randomization gather maps (ll_maps (E, 288), d_maps (E, 32),
+    int64) of at least `events` events on `device`: uploaded once a
+    device, and again only when a run needs more events than it holds.
+    The first events never change as the maps grow."""
+    with span("zt.squeeze.maps"):
+        key = str(device)
+        with _MAPS_LOCK:
+            maps = _MAPS.get(key)
+            if maps is None or maps[0].shape[0] < events:
+                from .devsplit import upload
+                maps = tuple(upload(m.astype(np.int64), torch.device(device))
+                             for m in costmodel.randomize_maps(events))
+                _MAPS[key] = maps
+                bump(RANDOM, "maps_built")
+        return maps
 
 
 def prepare_group(bp_len, bp_dist, data_block, tile_start, tile_nbytes,
@@ -247,8 +282,9 @@ class SqueezeLoop:
         next_d = torch.where(blend, blended_d, d_hist)
 
         stuck = (cost == last_cost) if i > 5 else torch.zeros_like(improved)
-        # Replica rows draw from a staggered window of the map stream.
-        ecc = torch.clamp(ec + rep_off, max=MAX_EVENTS - 1)
+        # Replica rows draw from a staggered window of the map stream,
+        # whose maps cover every event a row can draw (events_needed).
+        ecc = ec + rep_off
         rnd_ll = torch.gather(best_sll, 1, ll_maps[ecc])
         rnd_ll[:, 256] = 1
         rnd_d = torch.gather(best_sd, 1, d_maps[ecc])
@@ -290,17 +326,19 @@ class SqueezeLoop:
     def compact(self, state, fetch_cap: int):
         """The end-of-loop compaction: each lane's sparse packed path rows
         to the front (scan_kernel.compact_lanes), on each shard's device.
-        Returns (best_cost, best_sll, best_sd, nsym (G, LANES), packed
-        (G, fetch_cap, LANES), best_pe): best_pe is also kept, a lane
-        overflowing fetch_cap pulls it instead."""
-        (_, _, best_cost, best_sll, best_sd, _, _, _, best_pe) = state
+        Returns (best_cost, best_sll, best_sd, counts, packed
+        (G, fetch_cap, LANES), best_pe): counts (G * LANES + nb_pad,) is
+        each lane's path length, then each block row's randomization
+        events, in one tensor so that one pull reads both; best_pe is
+        also kept, a lane overflowing fetch_cap pulls it instead."""
+        (_, _, best_cost, best_sll, best_sd, _, _, ec, best_pe) = state
         nsym, packed = [], []
         with span("zt.squeeze.compact"):
             for bpe in best_pe:
                 n, pe_c = scan_kernel.compact_lanes(bpe)
-                nsym.append(n.to(self.device))
+                nsym.append(n.to(self.device).reshape(-1))
                 packed.append(pe_c[:, :fetch_cap, :].to(self.device))
-            return (best_cost, best_sll, best_sd, torch.cat(nsym),
+            return (best_cost, best_sll, best_sd, torch.cat(nsym + [ec]),
                     torch.cat(packed), best_pe)
 
 
@@ -534,8 +572,8 @@ class FusedSqueeze:
         dev = self.device
         with span("zt.squeeze.prep"):
             sll, sd, rep_off = self.initial_stats(seed_ll, seed_d)
-            ll_maps, d_maps = (torch.from_numpy(m).to(dev).long()
-                               for m in costmodel.randomize_maps(MAX_EVENTS))
+            ll_maps, d_maps = random_maps(
+                dev, events_needed(numiterations, rep_off.max()))
             state = self.loop.init_state(torch.from_numpy(sll).to(dev),
                                          torch.from_numpy(sd).to(dev))
             rep_off = torch.from_numpy(rep_off).to(dev)
@@ -545,11 +583,12 @@ class FusedSqueeze:
 
     def collect(self, handle):
         """Block on a dispatch() handle and decode the parses."""
-        ((best_cost, best_sll, best_sd, nsym, packed, best_pe),
+        ((best_cost, best_sll, best_sd, counts, packed, best_pe),
          seed_ll, seed_d, numiterations, fetch_cap) = handle
 
         with span("zt.collect_wait"):
-            nsym_h = nsym.cpu().numpy().reshape(-1)    # (G*LANES,)
+            counts_h = counts.cpu().numpy()
+            nsym_h = counts_h[:self.ngroups * LANES]
             over = (nsym_h[:self.nt] > fetch_cap).any()
             if over:
                 bump(FETCH_RETRIES)
@@ -561,6 +600,8 @@ class FusedSqueeze:
             cost_all = best_cost.cpu().numpy()[:self.nb_total]
             best_sll = best_sll.cpu().numpy()
             best_sd = best_sd.cpu().numpy()
+        bump_max(RANDOM, "events_max",
+                 int(counts_h[self.ngroups * LANES:][:self.nb_total].max()))
 
         def decode(tiles):
             lit_parts, dist_parts = [], []

@@ -40,15 +40,14 @@ import numpy as np
 import torch
 
 from .. import spec
-from ..utils.counters import bump
+from ..utils.counters import bump, bump_max
 from ..utils.logging import span
-from . import costmodel, devsplit, fused_engine, hashmatch, scan_kernel
+from . import devsplit, fused_engine, hashmatch, scan_kernel
 from . import seed as seed_mod
 
 KBP = fused_engine.KBP
 TILE = fused_engine.TILE
 LANES = fused_engine.LANES
-MAX_EVENTS = fused_engine.MAX_EVENTS
 
 # Masters at or above this size route to the megafused program (below
 # it, the batched FusedSqueeze shares lane groups across masters).
@@ -79,13 +78,6 @@ def _perturb_tables(nb_pad: int):
         md[rb] = rng.random(spec.NUM_D) < (1.0 / 3.0)
         td[rb] = rng.integers(0, spec.NUM_D, spec.NUM_D)
     return mll, tll, md, td
-
-
-@functools.lru_cache(maxsize=None)
-def _maps():
-    """The randomization gather maps as int64 (host constants)."""
-    return tuple(m.astype(np.int64)
-                 for m in costmodel.randomize_maps(MAX_EVENTS))
 
 
 def lane_geometry(cap: int, maxblocks: int, replicas: int):
@@ -357,7 +349,7 @@ def _pull_layout(MB: int, NL: int, nb_pad: int):
             ("tile_block", (NL,)), ("nb_total", ()),
             ("replica_of", (nb_pad,)), ("sp2", (MB,)), ("npts2", ()),
             ("tc1", ()), ("tc2", ()), ("search1", (2,)),
-            ("search2", (2,)))
+            ("search2", (2,)), ("events", (nb_pad,)))
 
 
 def mega_dispatch(data: np.ndarray, instart: int, inend: int,
@@ -405,8 +397,9 @@ def mega_dispatch(data: np.ndarray, instart: int, inend: int,
                                     dev)
     lit_t = prepared[3]
     del prepared
-    ll_maps, d_maps = (devsplit.table(f"mega_maps_{i}", m, dev)
-                       for i, m in enumerate(_maps()))
+    # A replica row's offset is 9 x its ordinal, at most `replicas`.
+    ll_maps, d_maps = fused_engine.random_maps(
+        dev, fused_engine.events_needed(numiterations, 9 * max(replicas, 1)))
     state = loop.run(loop.init_state(sll, sd), numiterations, ll_maps,
                      d_maps, rep_off)
     nsym_lane, packed, sp2, npts2, tc1, tc2, search2 = _finish(
@@ -415,7 +408,8 @@ def mega_dispatch(data: np.ndarray, instart: int, inend: int,
                 for s in (search1, search2)]
     pulled = (byte_splits, npts, block_costs, ll_h1, d_hist, state[2],
               state[3], state[4], nsym_lane, tile_start, tile_nbytes,
-              tile_block, geo[4], geo[5], sp2, npts2, tc1, tc2, *searches)
+              tile_block, geo[4], geo[5], sp2, npts2, tc1, tc2, *searches,
+              state[7])
     flat = torch.cat([t.reshape(-1).long() for t in pulled])
     layout = _pull_layout(MB, NL, nb_pad)
     return (data, instart, inend, window_start, fetch_cap, layout, flat,
@@ -469,6 +463,8 @@ class MegaResult:
         self.block_costs = out["block_costs"][:nb]
         self.nb_total = int(out["nb_total"])
         self.replica_of = out["replica_of"][:self.nb_total]
+        bump_max(fused_engine.RANDOM, "events_max",
+                 int(out["events"][:self.nb_total].max()))
         self.tile_start = out["tile_start"]
         self.tile_nbytes = out["tile_nbytes"]
         self.tile_block = out["tile_block"]

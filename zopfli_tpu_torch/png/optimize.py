@@ -209,7 +209,8 @@ def _strategy_ftypes(name, cand, spec, probe_deflate, predefined=None):
             return filtlib.strategy_zero(h)
         return np.asarray(predefined, dtype=np.int64)
     if name == "bruteforce":
-        return _bruteforce_lines(cand, 0, h)
+        with span("zt.png.bruteforce"):
+            return _bruteforce_lines(cand, 0, h)
     raise ValueError(f"unknown strategy {name}")
 
 
@@ -436,31 +437,36 @@ def _prepare(origpng: bytes, opts: PNGOptions,
         else:
             strategies = list(STRATEGIES)
 
-    predefined = None
-    if "predefined" in strategies:
-        # Original per-line filters for non-interlaced same-geometry.
-        try:
-            idat = b"".join(c.data for c in info.chunks if c.type == "IDAT")
-            raw0 = np.frombuffer(zlib.decompress(idat), np.uint8)
-            if info.interlace == 0:
-                st0 = codec._stride(w, info.colortype, info.bitdepth)
-                predefined = raw0.reshape(h, 1 + st0)[:, 0].astype(np.int64)
-        except Exception:
-            predefined = None
+    if not raws:  # the probe hands its winner on already serialized
+        with span("zt.png.strategies"):
+            predefined = (_predefined(info, w, h)
+                          if "predefined" in strategies else None)
+            for name in strategies:
+                ftypes = _strategy_ftypes(name, cand, spec, None,
+                                          predefined=predefined)
+                ftypes_list.append(ftypes)
+                raws.append(filtlib.serialize(cand,
+                                              np.asarray(ftypes, np.int64)))
 
     keep = _keepchunks(info.chunks, opts.keepchunks)
-
-    if not raws:  # the probe hands its winner on already serialized
-        for name in strategies:
-            ftypes = _strategy_ftypes(name, cand, spec, None,
-                                      predefined=predefined)
-            ftypes_list.append(ftypes)
-            raws.append(filtlib.serialize(cand,
-                                          np.asarray(ftypes, np.int64)))
 
     return _Prepared(opts=opts, rgba=rgba, spec=spec,
                      strategies=list(strategies), ftypes=ftypes_list,
                      raws=raws, keep=keep, iters=iters)
+
+
+def _predefined(info, w: int, h: int):
+    """The input's own filter type a line (non-interlaced input of the
+    same geometry), else None."""
+    try:
+        idat = b"".join(c.data for c in info.chunks if c.type == "IDAT")
+        raw0 = np.frombuffer(zlib.decompress(idat), np.uint8)
+        if info.interlace == 0:
+            st0 = codec._stride(w, info.colortype, info.bitdepth)
+            return raw0.reshape(h, 1 + st0)[:, 0].astype(np.int64)
+    except Exception:
+        pass
+    return None
 
 
 def _pixels_equal(a: np.ndarray, b: np.ndarray, alpha_aware: bool) -> bool:

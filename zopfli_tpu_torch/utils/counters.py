@@ -3,10 +3,13 @@
 The counters themselves stay plain module-level dicts and one-element
 lists (scan_kernel.LAUNCHES, devsplit.STATS, seed.PROGRAMS,
 engine.FALLBACKS, fused_engine.FETCH_RETRIES, fused_engine.VERIFY,
-squeeze_batched.VERIFY_FAILS, emit.PACKED, png.optimize.PROBE), so
-their readers index them as before.  fused_engine.VERIFY counts the
-blocks whose parse the native pass checked ("blocks") and the matched
-bytes it compared ("match_bytes").
+fused_engine.RANDOM, squeeze_batched.VERIFY_FAILS, emit.PACKED,
+png.optimize.PROBE), so their readers index them as before.
+fused_engine.VERIFY counts the blocks whose parse the native pass
+checked ("blocks") and the matched bytes it compared ("match_bytes").
+fused_engine.RANDOM keeps the most randomization events a block row of
+the fused loop drew ("events_max", a maximum, not a sum) and counts the
+uploads of the loop's randomization maps ("maps_built").
 emit.PACKED counts the bits that each BitStream pack wrote with the
 native payload pass ("payload_bits") and as header and tree fields
 ("field_bits").
@@ -33,3 +36,9 @@ def bump(counter, key=0, n: int = 1) -> None:
     """counter[key] += n under the counters' lock."""
     with _lock:
         counter[key] += n
+
+
+def bump_max(counter, key, n: int) -> None:
+    """counter[key] = max(counter[key], n) under the counters' lock."""
+    with _lock:
+        counter[key] = max(counter[key], n)
